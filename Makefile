@@ -3,13 +3,16 @@ PY ?= python
 export PYTHONPATH := src:$(PYTHONPATH)
 export JAX_PLATFORMS ?= cpu
 
-.PHONY: test test-fast test-reorder test-kernels test-serve test-sharded bench-smoke bench bench-kernels bench-update bench-storage bench-serve bench-search bench-shard bench-summary quickstart
+.PHONY: test test-fast test-torch test-reorder test-kernels test-serve test-sharded bench-smoke bench bench-kernels bench-update bench-storage bench-serve bench-search bench-shard bench-summary quickstart
 
 test:            ## tier-1: full test suite, stop at first failure (~2.5 min)
 	$(PY) -m pytest -x -q
 
 test-fast:       ## tier-1 minus the slow interpret-mode sweeps
 	$(PY) -m pytest -x -q -m "not slow"
+
+test-torch:      ## PyTorch port parity tier vs the JAX reference (CPU; CUDA cases skip)
+	$(PY) -m pytest -x -q tests/test_torch_*.py
 
 test-reorder:    ## permutation-invariance property tier (both kernel backends)
 	$(PY) -m pytest -x -q tests/test_reorder.py tests/test_codec_registry.py

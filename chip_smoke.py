@@ -1,0 +1,691 @@
+#!/usr/bin/env python3
+"""Chip smoke test of ``repro_torch`` (the PyTorch + CUDA port) on one
+NVIDIA GPU: the paper's §3.4 query path end to end, at one shard of the
+repo's SIFT1B-scale deployment (``configs/decouplevs_ann.py``: 32 shards of
+~31.25M 128-dim uint8 vectors, R=128, PQ M=32).
+
+    python3 chip_smoke.py [--seed 0] [--n 31250000] [--queries 1024]
+
+Phases (any fault exits non-zero; there is no CPU fallback):
+
+1. build  — compile every CUDA kernel from ``src/repro_torch/kernels/csrc``
+   (one nvcc per source, in parallel); print the card and its power limit.
+2. parity — each kernel against its plain PyTorch version on the card, at
+   the small-world and the shard's shapes, with ragged sizes, empty EF
+   lists, all-equal codes, exact distance ties and fully masked rows.
+   Every comparison is bit-exact.
+3. small world — the test suite's world (n=1200, dim=32, r=24, pq_m=8,
+   32 queries) built by the port, searched on the card and on the CPU:
+   identical ids, distances and SearchStats; with the dense visited set,
+   recall@10 >= 0.971875 (the reference suite's golden).
+4. shard — n sift-like vectors drawn on the card, a seeded random R=128
+   graph (Vamana's start graph: a Vamana build of 31M vertices is out of
+   reach of the host-side builder, so recall is not checked here), its EF
+   slots, PQ codes encoded on the card, the medoid. Every slot is decoded
+   by the ef_decode kernel and compared with the source graph; 1,024
+   queries are searched fused and unfused (beam_step="off") under the
+   production SearchParams; the two agree bit for bit and the distances
+   equal a recompute. Launch counts are read around each path.
+5. report — per-kernel times at the shard's shapes (CUDA events, median),
+   the plain version's and a library call's where one computes the same
+   function, the bound, then the contract's last lines.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+SHARD_N = 31_250_000            # 1B vectors over 32 data shards
+GOLDEN_RECALL_AT_10 = 0.971875  # the reference suite's pinned small world
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
+FP32_OPS_PER_S = 67e12          # H100 SXM, fp32 outside the tensor cores
+
+REPLACES = {
+    "beam_step": "src/repro/kernels/beam_step/beam_step.py:72",
+    "ef_decode": "src/repro/kernels/ef_decode/ef_decode.py:73",
+    "pq_adc_batched": "src/repro/kernels/pq_adc/pq_adc.py:91",
+    "rerank_l2": "src/repro/kernels/rerank_l2/rerank_l2.py:65",
+    "pq_encode": "src/repro/core/graph/pq.py:62",  # host numpy encode_pq
+}
+
+
+def check(cond, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--n", type=int, default=SHARD_N,
+                    help="shard size (vectors); below 31,250,000 is a cut")
+    ap.add_argument("--queries", type=int, default=1024)
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on a GPU",
+              file=sys.stderr)
+        return 2
+    from repro_torch.kernels import build
+
+    # ---------------------------------------------------------- 1. build
+    t0 = time.time()
+    build.build_all()
+    log(f"build: {len(build.SOURCES)} kernels {list(build.SOURCES)} in "
+        f"{time.time() - t0:.1f} s (nvcc sm_90a -> {build.BUILD_DIR})")
+    for name in build.SOURCES:
+        txt = (build.BUILD_DIR / f"{name}.ptxas.txt")
+        if txt.exists():
+            used = [ln.split("ptxas info    : ")[-1] for ln in
+                    txt.read_text().splitlines() if "Used" in ln]
+            log(f"ptxas {name}: {'; '.join(used)}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}; "
+        f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
+        f"cudnn={torch.backends.cudnn.allow_tf32}")
+
+    parity = Parity(torch, args.seed)
+    parity.run_small()                                     # 2. parity
+    small_world(torch, args.seed)                          # 3. small world
+    shard = Shard(torch, args)                             # 4. shard
+    shard.build()
+    shard.verify_slots()
+    parity.run_shard(shard)
+    launches = shard.search()
+    kernels = report(torch, parity, shard, launches)       # 5. report
+
+    log(smi)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+# ------------------------------------------------------------------ parity
+def bits_equal(torch, a, b) -> bool:
+    """Bit-for-bit tensor equality (float bits compared, so inf == inf)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return bool(torch.equal(a, b))
+
+
+def max_abs_err(torch, a, b) -> float:
+    if a.dtype != torch.float32:
+        return float((a.long() - b.long()).abs().max()) if a.numel() else 0.0
+    fin = torch.isfinite(a) & torch.isfinite(b)
+    check(bool((torch.isfinite(a) == torch.isfinite(b)).all()),
+          "kernel and plain version disagree on which entries are finite")
+    return float((a[fin] - b[fin]).abs().max()) if bool(fin.any()) else 0.0
+
+
+class Parity:
+    """Each kernel wrapper against its plain version on the same CUDA
+    inputs; every case must agree bit for bit."""
+
+    def __init__(self, torch, seed):
+        from repro_torch.kernels.beam_step import beam_step as bs
+        from repro_torch.kernels.ef_decode import ef_decode as ef
+        from repro_torch.kernels.pq_adc import pq_adc as pa
+        from repro_torch.kernels.pq_encode import pq_encode as pe
+        from repro_torch.kernels.rerank_l2 import rerank_l2 as rr
+        self.torch = torch
+        self.dev = torch.device("cuda")
+        self.g = torch.Generator(device=self.dev).manual_seed(seed + 1)
+        self.ops = {
+            "beam_step": (bs.beam_step_cuda, bs.beam_step_ref),
+            "ef_decode": (ef.ef_decode_cuda, ef.ef_decode_ref),
+            "pq_adc_batched": (pa.pq_adc_batched_cuda,
+                               pa.pq_adc_batched_ref),
+            "rerank_l2": (rr.rerank_l2_cuda, rr.rerank_l2_ref),
+            "pq_encode": (pe.pq_encode_cuda, pe.pq_encode_ref),
+        }
+        self.err = dict.fromkeys(self.ops, 0.0)
+        self.cases = dict.fromkeys(self.ops, 0)
+
+    def compare(self, op, label, *args):
+        kern, plain = self.ops[op]
+        got, want = kern(*args), plain(*args)
+        self.torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for g, w in zip(got, want):
+            self.err[op] = max(self.err[op], max_abs_err(self.torch, g, w))
+            check(bits_equal(self.torch, g, w),
+                  f"{op} [{label}]: kernel != plain version")
+        self.cases[op] += 1
+        return got
+
+    # -- input makers (all on the card, from the generator)
+    def rand(self, *shape):
+        return self.torch.randn(*shape, generator=self.g, device=self.dev)
+
+    def randint(self, hi, *shape, dtype=None):
+        t = self.torch.randint(0, hi, shape, generator=self.g,
+                               device=self.dev)
+        return t.to(dtype) if dtype is not None else t
+
+    def beam_case(self, nq, e, l_size, m, mask_p=0.85, ties=False, k=256):
+        torch = self.torch
+        codes = self.randint(256, nq, e, m, dtype=torch.uint8)
+        luts = self.rand(nq, m, k)
+        if ties:   # quantize hard so merged distances collide constantly
+            luts = luts.round()
+        cand_d = (self.rand(nq, l_size) ** 2).sort(1).values
+        if ties:
+            cand_d = (cand_d * 2).round() / 2
+        cand_ids = self.randint(10**6, nq, l_size, dtype=torch.int32)
+        keep = torch.rand(nq, e, generator=self.g, device=self.dev) < mask_p
+        new_ids = torch.where(keep, self.randint(10**6, nq, e), -1).to(
+            torch.int32)
+        return codes, luts, cand_ids, cand_d.contiguous(), new_ids
+
+    def ef_case(self, r_max, universe, lens):
+        from repro_torch.core.codec.elias_fano import encode_slots_torch
+        torch = self.torch
+        lens = torch.as_tensor(lens, device=self.dev)
+        b = lens.numel()
+        # distinct sorted values: sorted draws in [0, U - r) plus 0..r-1
+        u = self.randint(max(1, universe - r_max + 1), b, r_max).sort(1).values
+        vals = u + torch.arange(r_max, device=self.dev)
+        slots = encode_slots_torch(vals, lens, r_max, universe)
+        nb, ct = self.compare("ef_decode", f"r={r_max} U={universe}",
+                              slots, r_max, universe)
+        j = torch.arange(r_max, device=self.dev)
+        live = j[None, :] < lens[:, None]
+        check(bool((ct == lens).all()), "ef_decode counts")
+        check(bool((nb.long()[live] == vals[live]).all())
+              and bool((nb[~live] == universe - 1).all()),
+              f"ef_decode r={r_max} U={universe}: values not recovered")
+        return slots
+
+    def run_small(self):
+        torch = self.torch
+        t0 = time.time()
+        # pq_adc_batched: entry score, hop shapes, M sweep, degenerate codes
+        for nq, n, m in [(32, 1, 8), (32, 96, 8), (3, 130, 16), (1, 1, 32),
+                         (2, 300, 32), (7, 129, 32)]:
+            self.compare("pq_adc_batched", f"{nq}x{n}x{m}",
+                         self.randint(256, nq, n, m, dtype=torch.uint8),
+                         self.rand(nq, m, 256))
+        self.compare("pq_adc_batched", "all-equal codes",
+                     torch.full((5, 129, 32), 3, dtype=torch.uint8,
+                                device=self.dev), self.rand(5, 32, 256))
+        self.compare("pq_adc_batched", "ties",
+                     self.randint(4, 4, 200, 8, dtype=torch.uint8),
+                     self.rand(4, 8, 256).round())
+        # ef_decode: the (r_max, universe) grid, empty and full lists
+        for r_max, universe in [(8, 64), (16, 1000), (24, 1200),
+                                (24, 10**5), (32, 10**6), (1, 2),
+                                (128, SHARD_N)]:
+            self.ef_case(r_max, universe,
+                         [0, 1, r_max, r_max // 2, min(13, r_max), 0])
+        self.compare("ef_decode", "zero slots",
+                     torch.zeros((3, 8), dtype=torch.int32,
+                                 device=self.dev), 24, 1200)
+        # beam_step: ragged, ties, all masked, the small world's hop
+        for nq, e, l_size, m in [(1, 1, 1, 1), (3, 5, 4, 8), (7, 130, 48, 4),
+                                 (2, 17, 10, 16), (8, 64, 32, 8),
+                                 (32, 96, 48, 8)]:
+            self.compare("beam_step", f"{nq}x{e}x{l_size}x{m}",
+                         *self.beam_case(nq, e, l_size, m))
+        self.compare("beam_step", "ties",
+                     *self.beam_case(4, 40, 16, 4, ties=True))
+        args = self.beam_case(3, 12, 8, 8, mask_p=0.0)
+        ids, d, ix = self.compare("beam_step", "all masked", *args)
+        check(bool(torch.equal(ids, args[2])) and bool(
+            (ix == torch.arange(8, device=self.dev)).all()),
+            "beam_step all-masked: candidate list must pass through")
+        # rerank_l2: D in {32, 128}, f32 and u8, equal rows
+        for q, c, d in [(1, 1, 8), (7, 20, 100), (32, 10, 32), (9, 130, 128),
+                        (3, 5, 129)]:
+            self.compare("rerank_l2", f"f32 {q}x{c}x{d}", self.rand(q, d),
+                         self.rand(q, c, d))
+            self.compare("rerank_l2", f"u8 {q}x{c}x{d}",
+                         self.rand(q, d) * 20,
+                         self.randint(256, q, c, d, dtype=torch.uint8))
+        qv = self.rand(4, 32)
+        out = self.compare("rerank_l2", "equal rows", qv,
+                           qv[:, None, :].expand(4, 9, 32).contiguous())[0]
+        check(bool((out == 0).all()), "rerank_l2: equal rows must give 0")
+        # pq_encode: the small world's shapes, u8 shard shapes, ties
+        for n, d, m in [(1200, 32, 8), (1000, 128, 32), (5, 8, 8)]:
+            self.compare("pq_encode", f"f32 {n}x{d} M={m}", self.rand(n, d),
+                         self.rand(m, 256, d // m))
+        cents = self.rand(32, 256, 4)
+        cents[:, 128:] = cents[:, :128]             # duplicated centroids
+        self.compare("pq_encode", "u8 ties", self.randint(
+            256, 777, 128, dtype=torch.uint8), cents * 30)
+        log(f"parity small: {dict(self.cases)} cases bit-exact "
+            f"({time.time() - t0:.1f} s)")
+
+    def run_shard(self, shard):
+        """The shard's own shapes and data, inputs kept for the timings."""
+        torch = self.torch
+        t0 = time.time()
+        nq, W, R, L = shard.nq, shard.p.beam_width, shard.R, shard.p.l_size
+        n = shard.n
+        luts = shard.luts()
+        sel = self.randint(n, nq, W * R)
+        codes = shard.index.pq_codes[sel]
+        new_ids = torch.where(
+            torch.rand(nq, W * R, generator=self.g, device=self.dev) < 0.6,
+            sel, -1).to(torch.int32)
+        cand_ids = self.randint(n, nq, L, dtype=torch.int32)
+        cand_d = self.compare("pq_adc_batched", "shard hop",
+                              shard.index.pq_codes[cand_ids], luts)[0]
+        cand_d, order = cand_d.sort(1)
+        cand_ids = torch.gather(cand_ids, 1, order)
+        self.shard_in = {
+            "pq_adc_batched": (codes, luts),
+            "beam_step": (codes, luts, cand_ids, cand_d.contiguous(),
+                          new_ids),
+            "ef_decode": (shard.index.ef_slots[self.randint(n, nq * W)],
+                          R, n),
+            "rerank_l2": (shard.queries, shard.index.vectors[
+                self.randint(n, nq, shard.p.rerank_batch)]),
+            "pq_encode": (shard.index.vectors[:1 << 18],
+                          shard.index.pq_centroids),
+        }
+        self.compare("pq_adc_batched", "shard entry",
+                     shard.index.pq_codes[sel[:, :1]], luts)
+        for op, args in self.shard_in.items():
+            out = self.compare(op, "shard", *args)
+            if op == "pq_encode":
+                check(bool(torch.equal(out[0],
+                                       shard.index.pq_codes[:1 << 18])),
+                      "pq_encode: codes differ from the shard's")
+        all_masked = list(self.shard_in["beam_step"])
+        all_masked[4] = torch.full_like(new_ids, -1)
+        self.compare("beam_step", "shard all masked", *all_masked)
+        log(f"parity shard: {dict(self.cases)} cases bit-exact "
+            f"({time.time() - t0:.1f} s)")
+
+
+# ------------------------------------------------------------- small world
+def small_world(torch, seed: int) -> None:
+    import numpy as np
+    from repro_torch.core.index import (build_device_index, recall_at_k,
+                                        verify_index_slots)
+    from repro_torch.core.search.beam import DeviceIndex, SearchParams, search
+    from repro_torch.data.synthetic import (ground_truth, make_queries,
+                                            make_vector_dataset)
+    from repro_torch.kernels.dispatch import KernelConfig
+    t0 = time.time()
+    vecs = make_vector_dataset("prop-like", n=1200, dim=32,
+                               seed=seed).astype(np.float32)
+    index, _, _ = build_device_index(vecs, r=24, l_build=48, pq_m=8,
+                                     seed=seed)
+    cpu_index = DeviceIndex(*(None if t is None else t.cpu() for t in index))
+    queries = make_queries("prop-like", 32, 32).astype(np.float32)
+    gt = ground_truth(vecs, queries, k=10)
+    check(verify_index_slots(index, 24, 1200), "small world EF slots lossy")
+    t_build = time.time() - t0
+    recalls = {}
+    for beam_step in ("auto", "off"):
+        for bits in (0, 10):
+            p = SearchParams(l_size=48, beam_width=4, k=10, rerank_batch=10,
+                             r_max=24, universe=1200, max_iters=128,
+                             visited_hash_bits=bits, trace_fetches=True,
+                             trace_hints=True,
+                             kernels=KernelConfig(beam_step=beam_step))
+            got = search(index, queries, p)
+            want = search(cpu_index, queries, p, device="cpu")
+            tag = f"beam_step={beam_step} hash_bits={bits}"
+            check(bits_equal(torch, got[0].cpu(), want[0]), f"{tag}: ids")
+            check(bits_equal(torch, got[1].cpu(), want[1]), f"{tag}: dists")
+            for f, a, b in zip(want[2]._fields, got[2], want[2]):
+                check(bits_equal(torch, a.cpu(), b), f"{tag}: stats.{f}")
+            rec = recall_at_k(got[0], gt, 10)
+            recalls[tag] = rec
+            # the golden is the dense visited set's; 2^10 hashed slots
+            # evict and re-visit, a different (cheaper) search
+            check(bits or rec >= GOLDEN_RECALL_AT_10,
+                  f"{tag}: recall@10 {rec} < {GOLDEN_RECALL_AT_10}")
+    log(f"small world: n=1200 dim=32 r=24 pq_m=8 32 queries; card == CPU "
+        f"bit for bit (ids, dists, every SearchStats field) for fused/off x "
+        f"dense/hashed; recall@10 {recalls} (golden {GOLDEN_RECALL_AT_10} "
+        f"for dense); build {t_build:.1f} s, total {time.time() - t0:.1f} s")
+
+
+# ------------------------------------------------------------------- shard
+class Shard:
+    """One data shard of the SIFT1B deployment, resident on the card."""
+
+    R, M, D = 128, 32, 128
+    CHUNK = 1 << 20
+
+    def __init__(self, torch, args):
+        from repro_torch.configs.decouplevs_ann import CONFIG
+        from repro_torch.core.search.beam import SearchParams
+        self.torch, self.seed = torch, args.seed
+        self.dev = torch.device("cuda")
+        self.n, self.nq = args.n, args.queries
+        check(CONFIG.r == self.R and CONFIG.pq_m == self.M
+              and CONFIG.dim == self.D, "shard shapes follow ANNConfig")
+        # lower_production_search's per-shard parameters
+        self.p = SearchParams(
+            l_size=CONFIG.l_size, beam_width=CONFIG.beam_width, k=CONFIG.k,
+            rerank_batch=CONFIG.rerank_batch, r_max=CONFIG.r,
+            universe=self.n, max_iters=64, use_ef=True,
+            visited_hash_bits=15)
+        if self.n < SHARD_N:
+            log(f"reduced: n={self.n} < {SHARD_N} vectors per shard "
+                f"(set by --n)")
+
+    def adjacency(self, a: int, b: int):
+        """Rows a..b of the seeded random R-regular graph, each list sorted,
+        distinct and without its own vertex (Vamana's start graph)."""
+        torch = self.torch
+        g = torch.Generator(device=self.dev).manual_seed(
+            self.seed * 1_000_003 + a // self.CHUNK)
+        u = torch.randint(0, self.n - self.R, (b - a, self.R), generator=g,
+                          device=self.dev).sort(1).values
+        v = u + torch.arange(self.R, device=self.dev)
+        rows = torch.arange(a, b, device=self.dev)[:, None]
+        return v + (v >= rows).long()
+
+    def build(self):
+        from repro_torch.core.codec.elias_fano import (encode_slots_torch,
+                                                       slot_layout)
+        from repro_torch.core.graph.pq import encode_pq_torch, train_pq
+        from repro_torch.core.search.beam import DeviceIndex
+        from repro_torch.data.synthetic import sift_like_torch
+        from repro_torch.kernels import build
+        torch, n, dev = self.torch, self.n, self.dev
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        t0 = time.time()
+        vectors = sift_like_torch(n, self.D, self.seed, dev)
+        torch.cuda.synchronize()
+        t_vec = time.time() - t0
+        g = torch.Generator(device=dev).manual_seed(self.seed + 2)
+        sample = vectors[torch.randperm(n, generator=g, device=dev)[:20_000]]
+        t1 = time.time()
+        cb = train_pq(sample.cpu().numpy(), m=self.M, seed=self.seed)
+        t_train = time.time() - t1
+        centroids = torch.from_numpy(cb.centroids).to(dev)
+        t1 = time.time()
+        codes = encode_pq_torch(vectors, centroids)
+        torch.cuda.synchronize()
+        t_enc = time.time() - t1
+        mean = torch.zeros(self.D, dtype=torch.float64, device=dev)
+        for a in range(0, n, self.CHUNK):
+            mean += vectors[a:a + self.CHUNK].double().sum(0)
+        mean = (mean / n).float()
+        best = []
+        for a in range(0, n, self.CHUNK):
+            d = ((vectors[a:a + self.CHUNK].float() - mean) ** 2).sum(1)
+            v, i = d.min(0)
+            best.append((float(v), a + int(i)))
+        medoid = min(best)[1]
+        t1 = time.time()
+        words = slot_layout(self.R, n)[3]
+        slots = torch.empty((n, words), dtype=torch.int32, device=dev)
+        full = torch.full((self.CHUNK,), self.R, dtype=torch.int32,
+                          device=dev)
+        for a in range(0, n, self.CHUNK):
+            b = min(a + self.CHUNK, n)
+            slots[a:b] = encode_slots_torch(self.adjacency(a, b),
+                                            full[:b - a], self.R, n)
+        torch.cuda.synchronize()
+        t_ef = time.time() - t1
+        self.index = DeviceIndex(
+            neighbors=torch.full((1, self.R), -1, dtype=torch.int32,
+                                 device=dev),
+            counts=torch.full((n,), self.R, dtype=torch.int32, device=dev),
+            ef_slots=slots, pq_codes=codes, pq_centroids=centroids,
+            vectors=vectors,
+            medoid=torch.tensor(medoid, dtype=torch.int64, device=dev))
+        self.build_launches = dict(build.LAUNCHES)
+        check(self.build_launches["pq_encode"] > 0,
+              "shard build never launched pq_encode")
+        resident = torch.cuda.memory_allocated()
+        log(f"shard: n={n} dim={self.D} uint8 sift-like, R={self.R} "
+            f"({words} EF words = {4 * words} B a list, "
+            f"{slots.numel() * 4 / 1e9:.2f} GB), PQ M={self.M} K=256 codes "
+            f"{codes.numel() / 1e9:.2f} GB, vectors "
+            f"{vectors.numel() / 1e9:.2f} GB, medoid {medoid}; resident "
+            f"{resident / 1e9:.2f} GB of "
+            f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.1f} GB"
+            f" (peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB); "
+            f"draw {t_vec:.1f} s, PQ train (host, 20k sample) {t_train:.1f} "
+            f"s, PQ encode {t_enc:.2f} s, EF encode {t_ef:.1f} s; build "
+            f"launches {self.build_launches}")
+        log("shard: recall not checked at this scale (random graph, "
+            "no Vamana build)")
+
+    def verify_slots(self):
+        """Paper Q1: every slot decodes to its source list (ef_decode)."""
+        from repro_torch.kernels import dispatch
+        torch, n = self.torch, self.n
+        t0 = time.time()
+        for a in range(0, n, self.CHUNK):
+            b = min(a + self.CHUNK, n)
+            vals, cnts = dispatch.ef_decode(self.index.ef_slots[a:b], self.R,
+                                            n)
+            check(bool((cnts == self.R).all())
+                  and bool(torch.equal(vals.long(), self.adjacency(a, b))),
+                  f"EF slots {a}..{b} do not decode to their lists")
+        torch.cuda.synchronize()
+        log(f"shard: all {n} EF slots decode losslessly through the "
+            f"ef_decode kernel ({time.time() - t0:.1f} s)")
+
+    @property
+    def queries(self):
+        if not hasattr(self, "_queries"):
+            from repro_torch.data.synthetic import sift_like_torch
+            self._queries = sift_like_torch(self.nq, self.D,
+                                            self.seed + 10_000,
+                                            self.dev).float()
+        return self._queries
+
+    def luts(self):
+        from repro_torch.core.graph.pq import build_lut_torch
+        return build_lut_torch(self.queries, self.index.pq_centroids)
+
+    def search(self):
+        from repro_torch.kernels import build, dispatch
+        from repro_torch.kernels.dispatch import KernelConfig
+        from repro_torch.core.search.beam import search
+        torch = self.torch
+        q = self.queries
+        search(self.index, q, self.p)                        # warm-up
+        torch.cuda.synchronize()
+        runs = {"auto": [], "off": []}
+        for mode in ("auto", "off", "off", "auto"):
+            p = self.p._replace(kernels=KernelConfig(beam_step=mode))
+            build.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ids, dists, stats = search(self.index, q, p)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            runs[mode].append((ids, dists, stats, wall,
+                               dict(build.LAUNCHES)))
+        (ids, dists, st, wall, fused), (ids2, d2, st2, wall2, off) = \
+            runs["auto"][0], runs["off"][0]
+        walls = {m: [r[3] for r in rs] for m, rs in runs.items()}
+        check(bits_equal(torch, ids, ids2) and bits_equal(torch, dists, d2),
+              "fused and unfused searches disagree")
+        for f, a, b in zip(st._fields, st, st2):
+            check(bits_equal(torch, a, b), f"fused/unfused stats.{f}")
+        live = ids >= 0
+        check(bool(live.all()), "a query returned fewer than k results")
+        recompute = dispatch.get_impl("rerank_l2", "ref")(
+            q, self.index.vectors[ids.long()])
+        check(bits_equal(torch, recompute, dists),
+              "returned distances != recompute of |x_id - q|^2")
+        exact64 = ((self.index.vectors[ids.long()].double()
+                    - q.double()[:, None]) ** 2).sum(-1)
+        rel = float(((exact64 - dists.double()).abs()
+                     / exact64.clamp_min(1)).max())
+        check(rel < 1e-6, f"distances vs float64 recompute: rel {rel}")
+        check(fused["beam_step"] > 0 and off["beam_step"] == 0,
+              "beam_step launches")
+        check(off["pq_adc_batched"] > fused["pq_adc_batched"] > 0,
+              "pq_adc_batched reaches past the entry only under 'off'")
+        total = {k: fused[k] + off[k] for k in fused}
+        for name in ("beam_step", "ef_decode", "pq_adc_batched", "rerank_l2"):
+            check(total[name] > 0, f"{name} never launched on the main path")
+        it = st.iters.float()
+        log(f"search: {self.nq} queries, L={self.p.l_size} W="
+            f"{self.p.beam_width} k={self.p.k} B={self.p.rerank_batch} "
+            f"max_iters={self.p.max_iters} hash_bits=15; wall s (run order "
+            f"fused, off, off, fused, after a warm-up): fused "
+            f"{walls['auto']}, off {walls['off']}; QPS fused "
+            f"{[self.nq / w for w in walls['auto']]}, off "
+            f"{[self.nq / w for w in walls['off']]}; hops mean "
+            f"{float(it.mean()):.2f} max {int(it.max())}; lists fetched "
+            f"mean {float(st.lists_fetched.float().mean()):.1f}; rerank "
+            f"batches mean {float(st.rerank_batches.float().mean()):.2f}; "
+            f"fused == off bit for bit (ids, dists, stats); dists == "
+            f"recompute (max rel vs float64 {rel:.2e})")
+        log(f"launches fused: {fused}")
+        log(f"launches off: {off}")
+        self.profile(walls["auto"][0])
+        return total
+
+    def profile(self, wall: float):
+        """Device busy time of one fused search, by kernel (torch.profiler
+        over CUPTI), against the search's wall time."""
+        from torch.profiler import ProfilerActivity, profile
+        from repro_torch.core.search.beam import search
+        torch = self.torch
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            search(self.index, self.queries, self.p)
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t0
+        # device-side events only (kernels, memsets, copies): the CPU ops
+        # that launched them carry the same time again
+        rows = [(ev.self_device_time_total, ev.count, ev.key[:60])
+                for ev in prof.key_averages()
+                if ev.device_type == torch.autograd.DeviceType.CUDA
+                and ev.self_device_time_total > 0]
+        busy = sum(r[0] for r in rows) / 1e6
+        if not rows:
+            log("profile: the profiler recorded no device time: device "
+                "busy share not measured")
+            return
+        rows.sort(reverse=True)
+        top = "; ".join(f"{k} {us / 1e3:.2f} ms x{c}" for us, c, k in rows[:8])
+        log(f"profile (fused search): device busy {busy * 1e3:.2f} ms = "
+            f"{100 * busy / wall:.1f}% of the unprofiled wall {wall:.3f} s "
+            f"({100 * busy / prof_wall:.1f}% of the profiled "
+            f"{prof_wall:.3f} s); top device time: {top}")
+
+
+# ------------------------------------------------------------------ report
+def cuda_ms(torch, fn, reps=20) -> float:
+    """Median device time of one call, in ms. The calls queue behind a
+    device sleep of ~0.1 s, so the host's enqueue cost (Python, ctypes)
+    stays out of the events: each pair brackets one call's device work."""
+    fn()
+    torch.cuda.synchronize()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(200_000_000)
+    for s, e in ev:
+        s.record()
+        fn()
+        e.record()
+    torch.cuda.synchronize()
+    ts = sorted(s.elapsed_time(e) for s, e in ev)
+    return ts[len(ts) // 2]
+
+
+def bounds(torch, op, args):
+    """(bytes, fp32 ops) the op must move / do on these inputs."""
+    if op == "pq_adc_batched":
+        codes, luts = args
+        nq, n, m = codes.shape
+        return codes.numel() + luts.numel() * 4 + nq * n * 4, nq * n * (m - 1)
+    if op == "beam_step":
+        codes, luts, cand_ids, cand_d, new_ids = args
+        nq, e, m = codes.shape
+        valid = int((new_ids >= 0).sum())
+        l_size = cand_ids.shape[1]
+        return (valid * m + luts.numel() * 4 + nq * l_size * 8
+                + new_ids.numel() * 4 + nq * l_size * 12), valid * (m - 1)
+    if op == "ef_decode":
+        slots, r_max, _ = args
+        return slots.numel() * 4 + slots.shape[0] * (r_max + 1) * 4, 0
+    if op == "rerank_l2":
+        q, x = args
+        return (q.numel() * 4 + x.numel() * x.element_size()
+                + x.shape[0] * x.shape[1] * 4), 3 * x.numel()
+    if op == "pq_encode":
+        x, cents = args
+        m, k, dsub = cents.shape
+        return (x.numel() * x.element_size() + cents.numel() * 4
+                + x.shape[0] * m), x.shape[0] * m * k * 3 * dsub
+    raise KeyError(op)
+
+
+def library_call(torch, op, args):
+    """One PyTorch call computing the same function, or None."""
+    if op == "pq_adc_batched":
+        codes, luts = args
+        idx = codes.long().transpose(1, 2).contiguous()
+        return lambda: torch.gather(luts, 2, idx).sum(1)
+    if op == "rerank_l2":
+        q, x = args
+        xf = x.float()
+        return lambda: torch.cdist(q[:, None, :], xf)[:, 0] ** 2
+    return None
+
+
+def report(torch, parity, shard, launches):
+    kernels = []
+    for op, args in parity.shard_in.items():
+        kern, plain = parity.ops[op]
+        ms = cuda_ms(torch, lambda: kern(*args))
+        plain_ms = cuda_ms(torch, lambda: plain(*args), reps=5)
+        lib = library_call(torch, op, args)
+        lib_ms = None if lib is None else cuda_ms(torch, lib)
+        nbytes, ops = bounds(torch, op, args)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / FP32_OPS_PER_S * 1e3
+        n_launch = (shard.build_launches[op] if op == "pq_encode"
+                    else launches[op])
+        check(n_launch > 0, f"{op} has no launches on its path")
+        shapes = [tuple(a.shape) for a in args if hasattr(a, "shape")]
+        kernels.append({
+            "name": op, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{op}.cu",
+            "replaces": REPLACES[op], "launches": n_launch,
+            "max_abs_err": parity.err[op], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib_ms})
+        log(f"time {op} {shapes}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+            f"ms, library {lib_ms if lib_ms is None else round(lib_ms, 4)} "
+            f"ms, bound {max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB, "
+            f"{ops / 1e9:.3f} GFLOP); launches {n_launch}; parity cases "
+            f"{parity.cases[op]} bit-exact")
+    return kernels
+
+
+if __name__ == "__main__":
+    sys.exit(main())

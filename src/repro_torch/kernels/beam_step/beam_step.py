@@ -1,0 +1,62 @@
+"""Fused beam step: the hop's ADC + top-L merge of the candidate list.
+
+    codes    [nq, E, M] uint8   PQ codes gathered for this hop's E neighbours
+    luts     [nq, M, K] f32     per-query ADC lookup tables
+    cand_ids [nq, L]    i32     current candidate list (-1 = empty slot)
+    cand_d   [nq, L]    f32     current candidate PQ distances (+inf = empty)
+    new_ids  [nq, E]    i32     deduped, unvisited neighbour ids (-1 = masked)
+    -> (cand_ids' [nq, L], cand_d' [nq, L], top_idx [nq, L])
+
+the L smallest of ``[cand | new]`` by (distance, merged index), with
+``top_idx`` indexing that concatenation. ``beam_step_cuda`` launches
+``csrc/beam_step.cu`` (the port of
+``repro/kernels/beam_step/beam_step.py::beam_step_pallas``);
+``beam_step_ref`` is its plain PyTorch version, op for op the unfused hot
+sequence of ``core/search/beam.py``. ``lax.top_k`` puts the lower index
+first on ties and ``torch.topk`` does not, so every top-k here is a stable
+ascending sort (``stable_smallest``).
+"""
+import torch
+
+from ..build import check_cuda, launch
+from ..pq_adc.pq_adc import pq_adc_batched_ref
+
+
+def stable_smallest(x: torch.Tensor, k: int):
+    """The k smallest of each row, ties to the lower index ->
+    (values [.., k], indices [.., k] int64) — ``lax.top_k(-x, k)``'s
+    selection and order."""
+    vals, idx = torch.sort(x, dim=-1, stable=True)
+    return vals[..., :k].contiguous(), idx[..., :k].contiguous()
+
+
+def beam_step_ref(codes, luts, cand_ids, cand_d, new_ids):
+    l_size = cand_ids.shape[1]
+    d = pq_adc_batched_ref(codes, luts)
+    new_d = torch.where(new_ids >= 0, d, torch.inf)
+    merged_ids = torch.cat([cand_ids, new_ids], 1)
+    merged_d = torch.cat([cand_d, new_d], 1)
+    top_d, top_i = stable_smallest(merged_d, l_size)
+    return (torch.gather(merged_ids, 1, top_i), top_d,
+            top_i.to(torch.int32))
+
+
+def beam_step_cuda(codes, luts, cand_ids, cand_d, new_ids):
+    nq, e, m = codes.shape
+    l_size = cand_ids.shape[1]
+    if (codes.dtype != torch.uint8 or luts.dtype != torch.float32
+            or cand_ids.dtype != torch.int32 or new_ids.dtype != torch.int32
+            or cand_d.dtype != torch.float32):
+        raise TypeError("beam_step takes uint8 codes, float32 LUTs and "
+                        "distances, int32 ids")
+    if (luts.shape[:2] != (nq, m) or cand_d.shape != (nq, l_size)
+            or cand_ids.shape != (nq, l_size) or new_ids.shape != (nq, e)):
+        raise ValueError("beam_step input shapes disagree")
+    dev = check_cuda(codes, luts, cand_ids, cand_d, new_ids)
+    ids = torch.empty((nq, l_size), dtype=torch.int32, device=dev)
+    d = torch.empty((nq, l_size), dtype=torch.float32, device=dev)
+    idx = torch.empty((nq, l_size), dtype=torch.int32, device=dev)
+    if nq * l_size:
+        launch("beam_step", "beam_step", codes, luts, cand_ids, cand_d,
+               new_ids, ids, d, idx, nq, e, l_size, m, luts.shape[2])
+    return ids, d, idx

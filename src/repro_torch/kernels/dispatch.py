@@ -1,0 +1,145 @@
+"""Kernel dispatch layer: one registry from (op, backend) to implementation.
+
+The JAX reference resolves a per-op backend at config time. Here the
+backend of every op is decided by where its tensors are:
+
+    cuda   the hand-written CUDA kernel (``kernels/csrc``), for tensors on
+           a CUDA device. A kernel that cannot be built or launched raises;
+           nothing falls back to the plain version.
+    ref    the plain PyTorch version, for tensors on the CPU.
+
+``KernelConfig`` keeps the reference's five fields. Each field is
+``"auto"`` (backend from the tensors' device); ``beam_step`` may also be
+``"off"``, which selects the unfused op composition in the hot path
+(``core/search/beam.py`` branches on it before calling dispatch). So no
+config can put a plain version on a CUDA tensor. An unknown request, a
+device with no backend, or an unresolved backend reaching ``get_impl``
+raises.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Callable, NamedTuple
+
+import torch
+
+BACKENDS = ("ref", "cuda")
+REQUESTED = ("auto", "off")
+
+
+class KernelConfig(NamedTuple):
+    """Per-op backend request. ``byteplane`` is kept for parity with the
+    reference's config; its op is not on the search path and not ported
+    yet."""
+    pq_adc: str = "auto"
+    ef_decode: str = "auto"
+    rerank_l2: str = "auto"
+    byteplane: str = "auto"
+    beam_step: str = "auto"
+
+    def check(self) -> "KernelConfig":
+        """Raise on a value this layer does not know; return self."""
+        for op, requested in zip(self._fields, self):
+            resolve_backend(requested, None, op)
+        return self
+
+
+def resolve_backend(requested: str, device: torch.device | None,
+                    op: str | None = None) -> str:
+    """One op's request + its tensors' device -> concrete backend
+    (``device=None`` only validates the request)."""
+    if requested not in REQUESTED:
+        raise ValueError(f"unknown kernel backend {requested!r}; "
+                         f"expected one of {REQUESTED}")
+    if requested == "off":
+        if op not in (None, "beam_step"):
+            raise ValueError(
+                f"backend 'off' only applies to the beam_step op, not {op!r}"
+                " — every other op is always on some backend")
+        return "off"
+    if device is None:
+        return requested
+    if device.type == "cuda":
+        return "cuda"
+    if device.type == "cpu":
+        return "ref"
+    raise ValueError(f"no kernel backend for tensors on {device}")
+
+
+@functools.lru_cache(maxsize=1)
+def _registry() -> dict[tuple[str, str], Callable]:
+    from .beam_step.beam_step import beam_step_cuda, beam_step_ref
+    from .ef_decode.ef_decode import ef_decode_cuda, ef_decode_ref
+    from .pq_adc.pq_adc import pq_adc_batched_cuda, pq_adc_batched_ref
+    from .pq_encode.pq_encode import pq_encode_cuda, pq_encode_ref
+    from .rerank_l2.rerank_l2 import rerank_l2_cuda, rerank_l2_ref
+
+    table: dict[tuple[str, str], Callable] = {}
+    for op, ref, kern in (
+            ("pq_adc_batched", pq_adc_batched_ref, pq_adc_batched_cuda),
+            ("ef_decode", ef_decode_ref, ef_decode_cuda),
+            ("rerank_l2", rerank_l2_ref, rerank_l2_cuda),
+            ("beam_step", beam_step_ref, beam_step_cuda),
+            ("pq_encode", pq_encode_ref, pq_encode_cuda)):
+        table[op, "ref"] = ref
+        table[op, "cuda"] = kern
+    return table
+
+
+def get_impl(op: str, backend: str) -> Callable:
+    """(op, concrete backend) -> implementation."""
+    if backend == "auto":
+        raise RuntimeError(
+            f"unresolved 'auto' backend reached dispatch for op {op!r}; "
+            "resolve it from the tensors' device first (resolve_backend)")
+    if backend == "off":
+        raise RuntimeError(
+            f"backend 'off' reached dispatch for op {op!r}: 'off' means "
+            "the UNFUSED composition — the hot path must branch on it "
+            "before calling dispatch (core/search/beam.py does)")
+    try:
+        return _registry()[op, backend]
+    except KeyError:
+        raise KeyError(f"no implementation registered for "
+                       f"op={op!r} backend={backend!r}") from None
+
+
+def _impl(op: str, requested: str, t: torch.Tensor) -> Callable:
+    return get_impl(op, resolve_backend(requested, t.device, op))
+
+
+# ------------------------------------------------------------- public ops
+def pq_adc_batched(codes, luts, cfg: KernelConfig | None = None):
+    """[nq, n, M] codes x [nq, M, K] per-query LUTs -> [nq, n]."""
+    cfg = cfg or KernelConfig()
+    return _impl("pq_adc_batched", cfg.pq_adc, codes)(codes, luts)
+
+
+def ef_decode(slots, r_max: int, universe: int,
+              cfg: KernelConfig | None = None):
+    """[B, W] int32 (uint32 bit-view) slots -> (neighbors [B, r_max],
+    counts [B])."""
+    cfg = cfg or KernelConfig()
+    return _impl("ef_decode", cfg.ef_decode, slots)(slots, r_max, universe)
+
+
+def rerank_l2(queries, cands, cfg: KernelConfig | None = None):
+    """[Q, D] queries x [Q, C, D] candidates -> squared L2 [Q, C]."""
+    cfg = cfg or KernelConfig()
+    return _impl("rerank_l2", cfg.rerank_l2, cands)(queries, cands)
+
+
+def beam_step(codes, luts, cand_ids, cand_d, new_ids,
+              cfg: KernelConfig | None = None):
+    """Fused hop tail: [nq, E, M] codes x [nq, M, K] LUTs merged into the
+    [nq, L] candidate list -> (cand_ids', cand_d', top_idx)."""
+    cfg = cfg or KernelConfig()
+    return _impl("beam_step", cfg.beam_step, codes)(
+        codes, luts, cand_ids, cand_d, new_ids)
+
+
+def pq_encode(vectors, centroids):
+    """[n, d] vectors x [M, K, dsub] centroids -> [n, M] uint8 PQ codes.
+    Not a field of ``KernelConfig`` (offline build, no reference kernel):
+    the backend follows the device alone."""
+    return _impl("pq_encode", "auto", vectors)(vectors, centroids)

@@ -1,0 +1,194 @@
+"""Tests of ``repro_torch`` that need a CUDA card: each hand-written kernel
+against its plain PyTorch version on the card, bit for bit, and a search
+on the card against the same search on the CPU. Every test is marked
+``cuda`` and skips without a card. The file imports neither ``jax`` nor
+``repro``, so it runs where only the port is installed:
+
+    python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+The seeded numpy case makers here are shared with
+tests/test_torch_kernels.py, which holds the plain versions against the
+JAX reference on the same inputs.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.codec.elias_fano import encode_slot
+from repro_torch.core.index import build_device_index
+from repro_torch.core.search.beam import DeviceIndex, SearchParams, search
+from repro_torch.data.synthetic import make_queries, make_vector_dataset
+from repro_torch.kernels import build
+from repro_torch.kernels.beam_step.beam_step import (beam_step_cuda,
+                                                     beam_step_ref)
+from repro_torch.kernels.dispatch import KernelConfig
+from repro_torch.kernels.ef_decode.ef_decode import (ef_decode_cuda,
+                                                     ef_decode_ref)
+from repro_torch.kernels.pq_adc.pq_adc import (pq_adc_batched_cuda,
+                                               pq_adc_batched_ref)
+from repro_torch.kernels.pq_encode.pq_encode import (pq_encode_cuda,
+                                                     pq_encode_ref)
+from repro_torch.kernels.rerank_l2.rerank_l2 import (rerank_l2_cuda,
+                                                     rerank_l2_ref)
+
+
+def adc_case(nq, n, m, seed, equal_codes=False):
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 256, (nq, n, m), dtype=np.uint8)
+    if equal_codes:
+        codes[:] = 3
+    luts = rng.normal(size=(nq, m, 256)).astype(np.float32)
+    return codes, luts
+
+
+def ef_slots(r_max, universe, seed):
+    """Slots of lists of lengths 0, 1, r_max, r_max/2, 13, 0 -> (uint32
+    slots [6, W], the sorted lists)."""
+    rng = np.random.default_rng(seed)
+    lens = [0, 1, r_max, r_max // 2, min(13, r_max), 0]
+    truth = [np.sort(rng.choice(universe, size=ln, replace=False)
+                     ).astype(np.uint64) for ln in lens]
+    return np.stack([encode_slot(v, r_max, universe) for v in truth]), truth
+
+
+def beam_case(nq, e, l_size, m, seed, mask_p=0.85, ties=False):
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 256, (nq, e, m), dtype=np.uint8)
+    luts = rng.normal(size=(nq, m, 256)).astype(np.float32)
+    if ties:   # quantize hard so merged distances collide constantly
+        luts = np.round(luts)
+    cand_d = np.sort(rng.normal(size=(nq, l_size)).astype(np.float32) ** 2, 1)
+    if ties:
+        cand_d = np.round(cand_d * 2) / 2
+    cand_ids = rng.integers(0, 10**6, (nq, l_size)).astype(np.int32)
+    new_ids = np.where(rng.random((nq, e)) < mask_p,
+                       rng.integers(0, 10**6, (nq, e)), -1).astype(np.int32)
+    return codes, luts, cand_ids, cand_d, new_ids
+
+
+BEAM_CASES = {
+    "ragged-1": dict(nq=1, e=1, l_size=1, m=1, seed=1),
+    "ragged-2": dict(nq=3, e=5, l_size=4, m=8, seed=2),
+    "ragged-3": dict(nq=7, e=130, l_size=48, m=4, seed=3),
+    "ragged-4": dict(nq=2, e=17, l_size=10, m=16, seed=4),
+    "world-hop": dict(nq=8, e=96, l_size=48, m=8, seed=5),
+    "shard-hop": dict(nq=16, e=512, l_size=200, m=32, seed=6),
+    "ties": dict(nq=4, e=40, l_size=16, m=4, seed=7, ties=True),
+    "all-masked": dict(nq=3, e=12, l_size=8, m=8, seed=11, mask_p=0.0),
+}
+
+
+def _bits(x):
+    x = x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+    return x.view(np.int32) if x.dtype == np.float32 else x
+
+
+def assert_bits_equal(a, b):
+    np.testing.assert_array_equal(_bits(a), _bits(b))
+
+
+@pytest.fixture
+def cuda():
+    """The card; tests that take it skip without one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (hand-written kernels)")
+    return torch.device("cuda")
+
+
+def _on(dev, *arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in arrays]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(BEAM_CASES))
+def test_beam_step_kernel(cuda, case):
+    args = _on(cuda, *beam_case(**BEAM_CASES[case]))
+    for got, want in zip(beam_step_cuda(*args), beam_step_ref(*args)):
+        assert_bits_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq,n,m,equal", [(1, 1, 8, False),
+                                          (3, 130, 16, False),
+                                          (8, 300, 32, False),
+                                          (2, 129, 32, True)])
+def test_pq_adc_batched_kernel(cuda, nq, n, m, equal):
+    codes, luts = _on(cuda, *adc_case(nq, n, m, seed=n + m,
+                                      equal_codes=equal))
+    assert_bits_equal(pq_adc_batched_cuda(codes, luts),
+                      pq_adc_batched_ref(codes, luts))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r_max,universe",
+                         [(8, 64), (16, 1000), (24, 1200), (32, 10**6),
+                          (1, 2), (128, 31_250_000)])
+def test_ef_decode_kernel(cuda, r_max, universe):
+    slots, truth = ef_slots(r_max, universe, seed=r_max)
+    slots = np.concatenate([slots, np.zeros_like(slots[:1])])  # malformed
+    (s,) = _on(cuda, slots.view(np.int32))
+    got, want = ef_decode_cuda(s, r_max, universe), ef_decode_ref(
+        s, r_max, universe)
+    for g, w in zip(got, want):
+        assert_bits_equal(g, w)
+    for i, vals in enumerate(truth):
+        np.testing.assert_array_equal(
+            got[0][i, :len(vals)].cpu().numpy(), vals.astype(np.int64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32])
+@pytest.mark.parametrize("q,c,d", [(1, 1, 8), (7, 20, 100), (32, 10, 32),
+                                   (9, 130, 128), (3, 5, 129)])
+def test_rerank_l2_kernel(cuda, q, c, d, dtype):
+    rng = np.random.default_rng(q + c + d)
+    queries = (rng.normal(size=(q, d)) * 20).astype(np.float32)
+    cands = (rng.integers(0, 256, (q, c, d)) if dtype == np.uint8
+             else rng.normal(size=(q, c, d))).astype(dtype)
+    qt, xt = _on(cuda, queries, cands)
+    assert_bits_equal(rerank_l2_cuda(qt, xt), rerank_l2_ref(qt, xt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,m,dtype", [(600, 32, 8, np.float32),
+                                         (3000, 128, 32, np.uint8),
+                                         (50, 8, 8, np.float32)])
+def test_pq_encode_kernel(cuda, n, d, m, dtype):
+    rng = np.random.default_rng(n)
+    x = (rng.integers(0, 40, (n, d)) if dtype == np.uint8
+         else rng.normal(size=(n, d))).astype(dtype)
+    cents = (rng.normal(size=(m, 256, d // m)) * 10).astype(np.float32)
+    cents[:, 200:] = cents[:, :56]                    # duplicated centroids
+    xt, ct = _on(cuda, x, cents)
+    assert_bits_equal(pq_encode_cuda(xt, ct), pq_encode_ref(xt, ct))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [0, 10])
+@pytest.mark.parametrize("beam_step", ["auto", "off"])
+def test_search_on_card_matches_cpu(cuda, beam_step, bits):
+    """The whole query path on the card (every kernel launched) equals the
+    plain path on the CPU: ids, distances and every SearchStats field."""
+    vecs = make_vector_dataset("prop-like", 400, 16, seed=3)
+    on_cpu, _, _ = build_device_index(vecs, r=12, l_build=24, pq_m=4,
+                                      seed=3, device="cpu")
+    on_card = DeviceIndex(*(None if t is None else t.to(cuda)
+                            for t in on_cpu))
+    queries = make_queries("prop-like", 9, 16)
+    p = SearchParams(l_size=32, beam_width=4, k=10, rerank_batch=10,
+                     r_max=12, universe=400, max_iters=64,
+                     visited_hash_bits=bits, trace_fetches=True,
+                     trace_hints=True,
+                     kernels=KernelConfig(beam_step=beam_step))
+    build.reset_launches()
+    got = search(on_card, queries, p)
+    fused = beam_step != "off"
+    assert build.LAUNCHES["ef_decode"] > 0 and build.LAUNCHES["rerank_l2"] > 0
+    assert (build.LAUNCHES["beam_step"] > 0) == fused
+    assert build.LAUNCHES["pq_adc_batched"] > (0 if fused else 1)
+    want = search(on_cpu, queries, p, device="cpu")
+    assert_bits_equal(got[0], want[0])
+    assert_bits_equal(got[1], want[1])
+    for name, a, b in zip(want[2]._fields, got[2], want[2]):
+        assert_bits_equal(a, b)

@@ -1,0 +1,232 @@
+"""Port parity tier for the kernels of the search path: each plain PyTorch
+version in ``repro_torch.kernels`` against the JAX reference's ``ref``
+oracle and its ``pallas-interpret`` kernel, on the sweeps of
+tests/test_kernel_conformance.py, and the dispatch rules. The kernels
+against their plain versions on the card are in tests/test_torch_cuda.py,
+which also holds the seeded case makers used here.
+
+Inputs are made with numpy from a seed and handed to both packages.
+Tolerances: bit-exact wherever both sides fold in the same order (ADC over
+m, EF decode, the fused hop's ids and top_idx, rerank at D <= 32); the
+Pallas kernels compute ADC and rerank as matmuls, so against
+``pallas-interpret`` distances are held to the conformance tier's own
+tolerances; jnp's rerank sum at D = 128 is no left fold, so there rtol is
+1e-6.
+"""
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+from repro.core.graph.pq import PQCodebook, encode_pq
+from repro.kernels import dispatch as jdispatch
+from repro.kernels.dispatch import KernelConfig as JKernelConfig
+
+from repro_torch.kernels import dispatch
+from repro_torch.kernels.beam_step.beam_step import beam_step_ref
+from repro_torch.kernels.dispatch import KernelConfig, get_impl
+from repro_torch.kernels.ef_decode.ef_decode import ef_decode_ref
+from repro_torch.kernels.pq_adc.pq_adc import (pq_adc_batched_cuda,
+                                               pq_adc_batched_ref)
+from repro_torch.kernels.pq_encode.pq_encode import pq_encode_ref
+from repro_torch.kernels.rerank_l2.rerank_l2 import (rerank_l2_cuda,
+                                                     rerank_l2_ref)
+
+from test_torch_cuda import (BEAM_CASES, adc_case, assert_bits_equal,
+                             beam_case, ef_slots)
+
+JREF = JKernelConfig("ref", "ref", "ref", "ref", "ref")
+JPAL = JKernelConfig(*(["pallas-interpret"] * 5))
+T = torch.from_numpy
+
+
+# ------------------------------------------------------------------ pq_adc
+@pytest.mark.parametrize("m", [8, 16, 32])
+@pytest.mark.parametrize("nq,n", [(1, 1), (3, 130), (8, 96)])
+def test_pq_adc_batched_matches_reference(nq, n, m):
+    codes, luts = adc_case(nq, n, m, seed=nq * 100 + n + m)
+    got = pq_adc_batched_ref(T(codes), T(luts))
+    want = jdispatch.pq_adc_batched(jnp.asarray(codes), jnp.asarray(luts),
+                                    JREF)
+    assert_bits_equal(got, want)
+    pal = jdispatch.pq_adc_batched(jnp.asarray(codes), jnp.asarray(luts),
+                                   JPAL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pal), rtol=1e-6,
+                               atol=1e-5)
+
+
+def test_pq_adc_batched_all_equal_codes():
+    codes, luts = adc_case(2, 130, 32, seed=5, equal_codes=True)
+    got = pq_adc_batched_ref(T(codes), T(luts)).numpy()
+    assert all(len(set(row.tolist())) == 1 for row in got)
+    assert_bits_equal(got, jdispatch.pq_adc_batched(
+        jnp.asarray(codes), jnp.asarray(luts), JREF))
+
+
+# --------------------------------------------------------------- ef_decode
+@pytest.mark.parametrize("r_max,universe",
+                         [(8, 64), (16, 1000), (24, 1200), (24, 10**5),
+                          (32, 10**6), (128, 31_250_000)])
+def test_ef_decode_matches_reference(r_max, universe):
+    slots, truth = ef_slots(r_max, universe, seed=r_max)
+    nb, ct = ef_decode_ref(T(slots.view(np.int32)), r_max, universe)
+    for cfg in (JREF, JPAL):
+        nb_j, ct_j = jdispatch.ef_decode(jnp.asarray(slots), r_max,
+                                         universe, cfg)
+        assert_bits_equal(nb, nb_j)
+        assert_bits_equal(ct, ct_j)
+    for i, vals in enumerate(truth):
+        assert int(ct[i]) == len(vals)
+        np.testing.assert_array_equal(nb[i, :len(vals)].numpy(),
+                                      vals.astype(np.int64))
+        assert (nb[i, len(vals):] == universe - 1).all()
+
+
+def test_ef_decode_malformed_slots_match_reference():
+    """Bitmaps with fewer set bits than r_max (all-zero slots, a slot cut
+    short) decode exactly as the reference's argmax select does."""
+    slots, _ = ef_slots(24, 1200, seed=3)
+    slots = np.concatenate([slots, np.zeros_like(slots[:2])])
+    slots[-3, -1] = 0
+    nb, ct = ef_decode_ref(T(slots.view(np.int32)), 24, 1200)
+    nb_j, ct_j = jdispatch.ef_decode(jnp.asarray(slots), 24, 1200, JREF)
+    assert_bits_equal(nb, nb_j)
+    assert_bits_equal(ct, ct_j)
+
+
+# --------------------------------------------------------------- beam_step
+@pytest.mark.parametrize("case", sorted(BEAM_CASES))
+def test_beam_step_matches_reference(case):
+    args = beam_case(**BEAM_CASES[case])
+    ids, d, ix = beam_step_ref(*map(T, args))
+    ids_r, d_r, ix_r = jdispatch.beam_step(*map(jnp.asarray, args), JREF)
+    assert_bits_equal(ids, ids_r)
+    assert_bits_equal(ix, ix_r)
+    assert_bits_equal(d, d_r)
+    ids_p, d_p, ix_p = jdispatch.beam_step(*map(jnp.asarray, args), JPAL)
+    assert_bits_equal(ids, ids_p)
+    assert_bits_equal(ix, ix_p)
+    np.testing.assert_allclose(d.numpy(), np.asarray(d_p), rtol=1e-5,
+                               atol=1e-4)
+    if case == "all-masked":
+        assert_bits_equal(ids, args[2])
+        np.testing.assert_array_equal(ix.numpy(), np.tile(np.arange(8),
+                                                          (3, 1)))
+
+
+def test_beam_step_matches_unfused_composition():
+    """The fused op == pq_adc_batched + mask + concat + stable top-L, the
+    composition the hot path runs under beam_step='off'."""
+    codes, luts, cand_ids, cand_d, new_ids = map(T, beam_case(5, 33, 20, 8,
+                                                               seed=23))
+    d = torch.where(new_ids >= 0, pq_adc_batched_ref(codes, luts), torch.inf)
+    merged_d = torch.cat([cand_d, d], 1)
+    order = torch.sort(merged_d, dim=1, stable=True).indices[:, :20]
+    ids, got_d, ix = beam_step_ref(codes, luts, cand_ids, cand_d, new_ids)
+    assert_bits_equal(ix, order.to(torch.int32))
+    assert_bits_equal(ids, torch.gather(torch.cat([cand_ids, new_ids], 1), 1,
+                                        order))
+    assert_bits_equal(got_d, torch.gather(merged_d, 1, order))
+
+
+# --------------------------------------------------------------- rerank_l2
+@pytest.mark.parametrize("dtype", ["u8", "f32"])
+@pytest.mark.parametrize("q,c,d", [(1, 1, 8), (7, 20, 32), (32, 10, 32),
+                                   (9, 130, 128), (3, 5, 128)])
+def test_rerank_l2_matches_reference(q, c, d, dtype):
+    rng = np.random.default_rng(q * c + d)
+    queries = rng.normal(size=(q, d)).astype(np.float32)
+    if dtype == "u8":
+        queries *= 20
+        cands = rng.integers(0, 256, (q, c, d), dtype=np.uint8)
+    else:
+        cands = rng.normal(size=(q, c, d)).astype(np.float32)
+    got = rerank_l2_ref(T(queries), T(cands))
+    want = jdispatch.rerank_l2(jnp.asarray(queries), jnp.asarray(cands), JREF)
+    if d <= 32:
+        assert_bits_equal(got, want)
+    else:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+    pal = jdispatch.rerank_l2(jnp.asarray(queries), jnp.asarray(cands), JPAL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pal), rtol=1e-4,
+                               atol=1e-3)
+
+
+def test_rerank_l2_equal_rows_are_zero():
+    q = np.random.default_rng(0).normal(size=(4, 32)).astype(np.float32)
+    cands = np.repeat(q[:, None, :], 9, axis=1)
+    assert (rerank_l2_ref(T(q), T(cands)) == 0).all()
+
+
+# --------------------------------------------------------------- pq_encode
+@pytest.mark.parametrize("n,d,m,dtype", [(600, 32, 8, np.float32),
+                                         (300, 128, 32, np.uint8),
+                                         (50, 8, 8, np.float32)])
+def test_pq_encode_plain_matches_numpy_encoder(n, d, m, dtype):
+    """The plain version of the on-card encoder gives the reference's
+    numpy codes byte for byte, duplicated centroids (ties) included."""
+    rng = np.random.default_rng(n + d)
+    x = (rng.integers(0, 40, (n, d)) if dtype == np.uint8
+         else rng.normal(size=(n, d))).astype(dtype)
+    cents = (rng.normal(size=(m, 256, d // m)) * 10).astype(np.float32)
+    cents[:, 200:] = cents[:, :56]
+    want = encode_pq(x, PQCodebook(centroids=cents, dim=d))
+    np.testing.assert_array_equal(pq_encode_ref(T(x), T(cents)).numpy(), want)
+
+
+# ---------------------------------------------------------- dispatch layer
+def test_backend_follows_the_tensors_device():
+    cfg = KernelConfig()
+    assert dispatch.resolve_backend("auto", torch.device("cpu")) == "ref"
+    assert dispatch.resolve_backend("auto", torch.device("cuda")) == "cuda"
+    assert dispatch.resolve_backend("off", torch.device("cuda"),
+                                    "beam_step") == "off"
+    codes, luts = adc_case(2, 5, 8, seed=0)
+    assert_bits_equal(dispatch.pq_adc_batched(T(codes), T(luts), cfg),
+                      pq_adc_batched_ref(T(codes), T(luts)))
+    with pytest.raises(ValueError, match="no kernel backend"):
+        dispatch.resolve_backend("auto", torch.device("meta"))
+
+
+def test_dispatch_refuses_unknown_and_unresolved_backends():
+    with pytest.raises(ValueError, match="unknown kernel backend"):
+        KernelConfig(pq_adc="pallas").check()
+    with pytest.raises(ValueError, match="unknown kernel backend"):
+        KernelConfig(rerank_l2="ref").check()
+    with pytest.raises(ValueError, match="beam_step"):
+        KernelConfig(pq_adc="off").check()
+    assert KernelConfig(beam_step="off").check().beam_step == "off"
+    with pytest.raises(RuntimeError, match="unresolved"):
+        get_impl("pq_adc_batched", "auto")
+    with pytest.raises(RuntimeError, match="branch"):
+        get_impl("beam_step", "off")
+    with pytest.raises(KeyError):
+        get_impl("byteplane", "cuda")
+
+
+def test_kernel_build_needs_nvcc(tmp_path, monkeypatch):
+    """Each kernel library is named by a hash of its source and built at
+    first use; without the CUDA toolkit the build raises (nothing falls
+    back to the plain versions)."""
+    from repro_torch.kernels import build
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
+    for name in build.SOURCES:
+        path = build.library_path(name)
+        assert path.parent == tmp_path / "kernels"
+        assert path.name.startswith(name + "-") and path.suffix == ".so"
+    monkeypatch.setattr(build.shutil, "which", lambda _: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.build_all()
+    assert not (tmp_path / "kernels").exists() or not any(
+        (tmp_path / "kernels").iterdir())
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    """On a CPU tensor a kernel wrapper raises; only dispatch picks the
+    plain version, and only because the tensors are on the CPU."""
+    codes, luts = adc_case(2, 5, 8, seed=0)
+    with pytest.raises(ValueError, match="CUDA"):
+        pq_adc_batched_cuda(T(codes), T(luts))
+    with pytest.raises(ValueError, match="CUDA"):
+        rerank_l2_cuda(T(luts[:, 0]), T(luts))
