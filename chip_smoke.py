@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Chip smoke test of ``repro_torch`` (the PyTorch + CUDA port) on one
-NVIDIA GPU: the paper's §3.4 query path end to end, at one shard of the
-repo's SIFT1B-scale deployment (``configs/decouplevs_ann.py``: 32 shards of
-~31.25M 128-dim uint8 vectors, R=128, PQ M=32).
+NVIDIA GPU: the paper's §3.4 query path and §3.3 storage path end to end,
+at one shard of the repo's SIFT1B-scale deployment
+(``configs/decouplevs_ann.py``: 32 shards of ~31.25M 128-dim uint8 vectors,
+R=128, PQ M=32, 512 MiB segments of 4 MiB chunks).
 
-    python3 chip_smoke.py [--seed 0] [--n 31250000] [--queries 1024]
+    python3 chip_smoke.py [--seed 0] [--n 31250000] [--prop-n 31250000]
+                          [--queries 1024]
 
 Phases (any fault exits non-zero; there is no CPU fallback):
 
@@ -12,8 +14,10 @@ Phases (any fault exits non-zero; there is no CPU fallback):
    (one nvcc per source, in parallel); print the card and its power limit.
 2. parity — each kernel against its plain PyTorch version on the card, at
    the small-world and the shard's shapes, with ragged sizes, empty EF
-   lists, all-equal codes, exact distance ties and fully masked rows.
-   Every comparison is bit-exact.
+   lists, all-equal codes, exact distance ties, fully masked rows, empty
+   and unaligned byteplane rows, a SIFT and a prop-like 4 MiB chunk, and
+   one query's exhaustive single-LUT ADC over the shard's codes. Every
+   comparison is bit-exact.
 3. small world — the test suite's world (n=1200, dim=32, r=24, pq_m=8,
    32 queries) built by the port, searched on the card and on the CPU:
    identical ids, distances and SearchStats; with the dense visited set,
@@ -26,6 +30,17 @@ Phases (any fault exits non-zero; there is no CPU fallback):
    queries are searched fused and unfused (beam_step="off") under the
    production SearchParams; the two agree bit for bit and the distances
    equal a recompute. Launch counts are read around each path.
+4b. storage — the §3.3 path on the same shard: its vectors sealed into the
+   decoupled vector store ("auto": the sampled-entropy XOR-delta test per
+   chunk, one Huffman table per segment), its graph sealed into the
+   Elias-Fano block index store (every record decoded back and compared),
+   the bytes of the co-located baseline, of the raw decoupled stores and
+   of the compressed ones, every vector loaded back (bit-exact) and
+   searched again (ids and distances equal phase 4's), an exhaustive PQ
+   scan of 8 queries through the single-LUT pq_adc kernel; then, with the
+   shard freed, --prop-n prop-like float32 vectors drawn on the card,
+   sealed (XOR-delta must win in some chunk) and loaded back through the
+   byteplane kernel (bit-exact; its launches are counted).
 5. report — per-kernel times at the shard's shapes (CUDA events, median),
    the plain version's and a library call's where one computes the same
    function, the bound, then the contract's last lines.
@@ -53,6 +68,8 @@ REPLACES = {
     "pq_adc_batched": "src/repro/kernels/pq_adc/pq_adc.py:91",
     "rerank_l2": "src/repro/kernels/rerank_l2/rerank_l2.py:65",
     "pq_encode": "src/repro/core/graph/pq.py:62",  # host numpy encode_pq
+    "byteplane": "src/repro/kernels/byteplane/byteplane.py:25",
+    "pq_adc": "src/repro/kernels/pq_adc/pq_adc.py:53",
 }
 
 
@@ -70,6 +87,9 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--n", type=int, default=SHARD_N,
                     help="shard size (vectors); below 31,250,000 is a cut")
+    ap.add_argument("--prop-n", type=int, default=SHARD_N,
+                    help="prop-like store size (vectors); below 31,250,000 "
+                         "is a cut")
     ap.add_argument("--queries", type=int, default=1024)
     args = ap.parse_args()
 
@@ -109,7 +129,10 @@ def main() -> int:
     shard.verify_slots()
     parity.run_shard(shard)
     launches = shard.search()
-    kernels = report(torch, parity, shard, launches)       # 5. report
+    storage = Storage(torch, shard, args)                  # 4b. storage
+    launches.update(storage.run())
+    launches["pq_encode"] = shard.build_launches["pq_encode"]
+    kernels = report(torch, parity, launches)              # 5. report
 
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -138,12 +161,20 @@ def max_abs_err(torch, a, b) -> float:
     return float((a[fin] - b[fin]).abs().max()) if bool(fin.any()) else 0.0
 
 
+def prop_like_chunk(torch, dev, rows=8192, dim=128, seed=7):
+    """One 4 MiB chunk of prop-like float32 vectors, as bytes [rows, 512]."""
+    from repro_torch.data.synthetic import prop_like_torch
+    x = prop_like_torch(rows, dim, seed, dev)
+    return x.view(torch.uint8).reshape(rows, dim * 4)
+
+
 class Parity:
     """Each kernel wrapper against its plain version on the same CUDA
     inputs; every case must agree bit for bit."""
 
     def __init__(self, torch, seed):
         from repro_torch.kernels.beam_step import beam_step as bs
+        from repro_torch.kernels.byteplane import byteplane as bp
         from repro_torch.kernels.ef_decode import ef_decode as ef
         from repro_torch.kernels.pq_adc import pq_adc as pa
         from repro_torch.kernels.pq_encode import pq_encode as pe
@@ -158,6 +189,9 @@ class Parity:
                                pa.pq_adc_batched_ref),
             "rerank_l2": (rr.rerank_l2_cuda, rr.rerank_l2_ref),
             "pq_encode": (pe.pq_encode_cuda, pe.pq_encode_ref),
+            "byteplane": (bp.byteplane_decode_cuda,
+                          bp.byteplane_decode_ref),
+            "pq_adc": (pa.pq_adc_cuda, pa.pq_adc_ref),
         }
         self.err = dict.fromkeys(self.ops, 0.0)
         self.cases = dict.fromkeys(self.ops, 0)
@@ -183,6 +217,14 @@ class Parity:
         t = self.torch.randint(0, hi, shape, generator=self.g,
                                device=self.dev)
         return t.to(dtype) if dtype is not None else t
+
+    @staticmethod
+    def delta_chunk(vb):
+        """(XOR-delta packed rows, base) of a byte chunk, as the seal
+        makes them."""
+        from repro_torch.core.codec.xor_delta import build_base_torch
+        base = build_base_torch(vb)
+        return (vb ^ base).contiguous(), base
 
     def beam_case(self, nq, e, l_size, m, mask_p=0.85, ties=False, k=256):
         torch = self.torch
@@ -275,6 +317,28 @@ class Parity:
         cents[:, 128:] = cents[:, :128]             # duplicated centroids
         self.compare("pq_encode", "u8 ties", self.randint(
             256, 777, 128, dtype=torch.uint8), cents * 30)
+        # byteplane: empty, ragged and 100-byte rows, an unaligned slice
+        for n in (0, 1, 255, 256, 257, 4096):
+            for v in (1, 100, 128, 512):
+                packed = self.randint(256, n, v, dtype=torch.uint8)
+                base = self.randint(256, v, dtype=torch.uint8)
+                out = self.compare("byteplane", f"{n}x{v}", packed, base)[0]
+                check(bool(torch.equal(out ^ base, packed)),
+                      f"byteplane {n}x{v}: XOR does not invert")
+        rows = self.randint(256, 300, 100, dtype=torch.uint8)[1:258]
+        check(rows.data_ptr() % 16 != 0, "unaligned byteplane case")
+        self.compare("byteplane", "unaligned", rows,
+                     self.randint(256, 100, dtype=torch.uint8))
+        # pq_adc: bench_kernels' shapes, int32 codes, one row, equal codes
+        for n, m in ((1024, 8), (4096, 8), (1, 8), (3000, 32)):
+            lut = self.rand(m, 256)
+            self.compare("pq_adc", f"{n}x{m}",
+                         self.randint(256, n, m, dtype=torch.uint8), lut)
+            self.compare("pq_adc", f"{n}x{m} i32",
+                         self.randint(256, n, m, dtype=torch.int32), lut)
+        self.compare("pq_adc", "all-equal codes",
+                     torch.full((129, 32), 3, dtype=torch.uint8,
+                                device=self.dev), self.rand(32, 256))
         log(f"parity small: {dict(self.cases)} cases bit-exact "
             f"({time.time() - t0:.1f} s)")
 
@@ -303,9 +367,15 @@ class Parity:
                           R, n),
             "rerank_l2": (shard.queries, shard.index.vectors[
                 self.randint(n, nq, shard.p.rerank_batch)]),
-            "pq_encode": (shard.index.vectors[:1 << 18],
+            "pq_encode": (shard.index.vectors[:1 << 18].clone(),
                           shard.index.pq_centroids),
+            # one query's exhaustive ADC over every code of the shard
+            "pq_adc": (shard.index.pq_codes, luts[0].contiguous()),
+            # a prop-like 4 MiB chunk, XOR-delta against its own base
+            "byteplane": self.delta_chunk(prop_like_chunk(torch, self.dev)),
         }
+        self.compare("byteplane", "shard SIFT chunk", *self.delta_chunk(
+            shard.index.vectors[:32768]))
         self.compare("pq_adc_batched", "shard entry",
                      shard.index.pq_codes[sel[:, :1]], luts)
         for op, args in self.shard_in.items():
@@ -540,6 +610,7 @@ class Shard:
         rel = float(((exact64 - dists.double()).abs()
                      / exact64.clamp_min(1)).max())
         check(rel < 1e-6, f"distances vs float64 recompute: rel {rel}")
+        self.result = (ids, dists)
         check(fused["beam_step"] > 0 and off["beam_step"] == 0,
               "beam_step launches")
         check(off["pq_adc_batched"] > fused["pq_adc_batched"] > 0,
@@ -563,7 +634,8 @@ class Shard:
         log(f"launches fused: {fused}")
         log(f"launches off: {off}")
         self.profile(walls["auto"][0])
-        return total
+        return {name: total[name] for name in
+                ("beam_step", "ef_decode", "pq_adc_batched", "rerank_l2")}
 
     def profile(self, wall: float):
         """Device busy time of one fused search, by kernel (torch.profiler
@@ -594,6 +666,190 @@ class Shard:
             f"{100 * busy / wall:.1f}% of the unprofiled wall {wall:.3f} s "
             f"({100 * busy / prof_wall:.1f}% of the profiled "
             f"{prof_wall:.3f} s); top device time: {top}")
+
+
+# ----------------------------------------------------------------- storage
+def sync_time(torch, t0=None):
+    torch.cuda.synchronize()
+    return time.perf_counter() if t0 is None else time.perf_counter() - t0
+
+
+class Storage:
+    """Phase 4b: the §3.3 storage path on the shard, then the prop-like
+    store. Launch counts are reset before each path and read after it."""
+
+    def __init__(self, torch, shard, args):
+        from repro_torch.configs.decouplevs_ann import CONFIG
+        self.torch, self.shard, self.ann = torch, shard, CONFIG
+        self.dev, self.seed, self.prop_n = shard.dev, args.seed, args.prop_n
+        if self.prop_n < SHARD_N:
+            log(f"reduced: prop-like store n={self.prop_n} < {SHARD_N} "
+                f"vectors (set by --prop-n)")
+
+    def store(self, dim, dtype):
+        from repro_torch.core.storage.vector_store import (
+            DecoupledVectorStore, StoreConfig)
+        v_bytes = dim * dtype.itemsize
+        return DecoupledVectorStore(StoreConfig(
+            dim=dim, dtype=dtype, chunk_bytes=self.ann.chunk_bytes,
+            segment_capacity=self.ann.segment_bytes // v_bytes,
+            device=self.dev))
+
+    @staticmethod
+    def chunks(vs):
+        chunks = [c for s in vs.sealed.values() for c in s.chunks]
+        return len(chunks), sum(c.base is not None for c in chunks)
+
+    def run(self) -> dict:
+        launches = self.sift()
+        launches["byteplane"] = self.prop_like()
+        return launches
+
+    def sift(self) -> dict:
+        from repro_torch.core.search.beam import search
+        from repro_torch.core.storage.colocated import ColocatedStore
+        from repro_torch.core.storage.index_store import (
+            CompressedIndexStore, RawIndexStore)
+        from repro_torch.kernels import build
+        torch, shard, dev = self.torch, self.shard, self.dev
+        n, R, D = shard.n, shard.R, shard.D
+        vectors = shard.index.vectors
+        medoid = int(shard.index.medoid)
+        build.reset_launches()
+        # 1. the vectors, sealed under "auto"
+        vs = self.store(D, torch.uint8)
+        t0 = sync_time(torch)
+        vs.append(torch.arange(n, device=dev), vectors)
+        vs.seal_active()
+        t_seal = sync_time(torch, t0)
+        n_chunks, n_delta = self.chunks(vs)
+        log(f"storage: SIFT vectors sealed: {n} x {D} uint8 in "
+            f"{len(vs.sealed)} segments of {vs.cfg.segment_capacity}, "
+            f"{n_chunks} chunks of {vs.cfg.chunk_vectors}; XOR-delta chosen "
+            f"in {n_delta} chunks; {vs.physical_bytes} B in blocks + "
+            f"{vs.metadata_bytes} B metadata (beta {vs.beta_actual():.6f}); "
+            f"seal {t_seal:.2f} s ({n * D / t_seal / 1e9:.2f} GB/s)")
+        # 2. the graph, sealed into the Elias-Fano block index store
+        adj = torch.empty((n, R), dtype=torch.int32, device=dev)
+        for a in range(0, n, shard.CHUNK):
+            adj[a:a + shard.CHUNK] = shard.adjacency(a, min(a + shard.CHUNK,
+                                                            n))
+        t0 = sync_time(torch)
+        ix = CompressedIndexStore.from_graph(adj, medoid, R, universe=n,
+                                             device=dev)
+        t_ix = sync_time(torch, t0)
+        t0 = sync_time(torch)
+        for a in range(0, n, shard.CHUNK):
+            b = min(a + shard.CHUNK, n)
+            vals, cnt = ix.decode_batch(torch.arange(a, b, device=dev))
+            check(bool((cnt == R).all()) and bool(torch.equal(
+                vals, shard.adjacency(a, b))),
+                f"index store records {a}..{b} do not decode to their lists")
+        t_dec = sync_time(torch, t0)
+        rec_mean = float(ix.rec_len.double().mean())
+        log(f"storage: index store sealed: {n} EF records (mean "
+            f"{rec_mean:.2f} B) in {ix.n_blocks} blocks ({n / ix.n_blocks:.2f}"
+            f" a block), {ix.physical_bytes} B + sparse index "
+            f"{ix.sparse_index_bytes} B; seal {t_ix:.2f} s; every record "
+            f"decoded back equal to its list in {t_dec:.2f} s")
+        # 3. space: co-located baseline, raw decoupled, compressed decoupled
+        colo = ColocatedStore.build(vectors, adj, medoid, R)
+        raw_ix = RawIndexStore.from_graph(adj, medoid, R).physical_bytes
+        del adj
+        raw = raw_ix + n * D
+        comp = vs.physical_bytes + ix.physical_bytes
+        meta = vs.metadata_bytes + ix.sparse_index_bytes
+        log(f"space: co-located {colo.physical_bytes} B ({colo.record_bytes}"
+            f" B records, {colo.records_per_block} a block); decoupled raw "
+            f"{raw} B (index {raw_ix}, vectors {n * D}); decoupled "
+            f"compressed {comp} B (vectors {vs.physical_bytes}, index "
+            f"{ix.physical_bytes}) + in-memory metadata {meta} B; saving vs "
+            f"co-located {100 * (1 - comp / colo.physical_bytes):.2f}%, vs "
+            f"decoupled raw {100 * (1 - comp / raw):.2f}%")
+        del colo
+        # 4. every vector loaded back, the search run on them
+        t0 = sync_time(torch)
+        loaded = vs.get(torch.arange(n, device=dev), account=False)
+        t_load = sync_time(torch, t0)
+        check(bool(torch.equal(loaded, vectors)),
+              "SIFT vectors loaded from the store differ from the originals")
+        index = shard.index._replace(vectors=loaded)
+        ids, dists, _ = search(index, shard.queries, shard.p)
+        torch.cuda.synchronize()
+        check(bits_equal(torch, ids, shard.result[0])
+              and bits_equal(torch, dists, shard.result[1]),
+              "search over the loaded vectors differs from phase 4's")
+        recall = self.pq_scan(index, ids)
+        launches = dict(build.LAUNCHES)
+        log(f"storage: all {n} SIFT vectors loaded bit-exact in {t_load:.3f}"
+            f" s ({n * D / t_load / 1e9:.2f} GB/s); fused search over them "
+            f"== phase 4 (ids, dists); beam search recall@{shard.p.k} against"
+            f" an exhaustive PQ scan + exact re-rank of its 100 best "
+            f"(8 queries) {recall:.4f}; launches {launches}")
+        for name in ("beam_step", "ef_decode", "pq_adc_batched",
+                     "rerank_l2", "pq_adc"):
+            check(launches[name] > 0, f"{name} never launched on the "
+                  f"storage path")
+        check(launches["byteplane"] == n_delta,
+              "byteplane launches != chunks with a base")
+        shard.index = None           # the shard's tensors go before prop-like
+        return {"pq_adc": launches["pq_adc"]}
+
+    def pq_scan(self, index, ids, nq=8, depth=100) -> float:
+        """Exhaustive PQ scan of ``nq`` queries through the single-LUT
+        pq_adc kernel (ADC of every code, exact re-rank of the ``depth``
+        best): the beam search's recall@k against it."""
+        from repro_torch.core.graph.pq import build_lut_torch
+        from repro_torch.kernels import dispatch
+        torch, k = self.torch, self.shard.p.k
+        q = self.shard.queries[:nq]
+        luts = build_lut_torch(q, index.pq_centroids)
+        hits = 0
+        for i in range(nq):
+            d = dispatch.pq_adc(index.pq_codes, luts[i].contiguous())
+            top = torch.topk(d, depth, largest=False).indices
+            exact = ((index.vectors[top].float() - q[i]) ** 2).sum(1)
+            best = top[torch.topk(exact, k, largest=False).indices]
+            hits += len(set(best.tolist()) & set(ids[i].tolist()))
+        return hits / (nq * k)
+
+    def prop_like(self) -> int:
+        from repro_torch.data.synthetic import prop_like_torch
+        from repro_torch.kernels import build
+        torch, dev, n, dim = self.torch, self.dev, self.prop_n, 128
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = sync_time(torch)
+        x = prop_like_torch(n, dim, self.seed + 3, dev)
+        t_draw = sync_time(torch, t0)
+        vs = self.store(dim, torch.float32)
+        t0 = sync_time(torch)
+        vs.append(torch.arange(n, device=dev), x)
+        vs.seal_active()
+        t_seal = sync_time(torch, t0)
+        n_chunks, n_delta = self.chunks(vs)
+        check(n_delta > 0, "the §3.3 test chose XOR-delta in no prop-like "
+              "chunk: the byteplane path would not run")
+        build.reset_launches()
+        t0 = sync_time(torch)
+        loaded = vs.get(torch.arange(n, device=dev), account=False)
+        t_load = sync_time(torch, t0)
+        launched = build.LAUNCHES["byteplane"]
+        check(bool(torch.equal(loaded.view(torch.int32), x.view(torch.int32))),
+              "prop-like vectors loaded from the store differ")
+        check(launched == n_delta, f"byteplane launched {launched} times for"
+              f" {n_delta} chunks with a base")
+        raw = n * dim * 4
+        log(f"storage: prop-like {n} x {dim} float32 ({raw} B) drawn in "
+            f"{t_draw:.2f} s, sealed in {t_seal:.2f} s "
+            f"({raw / t_seal / 1e9:.2f} GB/s) into {len(vs.sealed)} segments,"
+            f" {n_chunks} chunks; XOR-delta chosen in {n_delta}; "
+            f"{vs.physical_bytes} B in blocks + {vs.metadata_bytes} B "
+            f"metadata ({100 * (1 - vs.physical_bytes / raw):.2f}% saved); "
+            f"all loaded bit-exact in {t_load:.3f} s "
+            f"({raw / t_load / 1e9:.2f} GB/s) with {launched} byteplane "
+            f"launches; peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        return launched
 
 
 # ------------------------------------------------------------------ report
@@ -640,6 +896,14 @@ def bounds(torch, op, args):
         m, k, dsub = cents.shape
         return (x.numel() * x.element_size() + cents.numel() * 4
                 + x.shape[0] * m), x.shape[0] * m * k * 3 * dsub
+    if op == "pq_adc":
+        codes, lut = args
+        n, m = codes.shape
+        return (codes.numel() * codes.element_size() + lut.numel() * 4
+                + n * 4), n * (m - 1)
+    if op == "byteplane":          # launch/roofline.py's 2nV + V bytes
+        packed, base = args
+        return 2 * packed.numel() + base.numel(), packed.numel()
     raise KeyError(op)
 
 
@@ -653,10 +917,18 @@ def library_call(torch, op, args):
         q, x = args
         xf = x.float()
         return lambda: torch.cdist(q[:, None, :], xf)[:, 0] ** 2
+    if op == "pq_adc":
+        codes, lut = args
+        idx = codes.long()
+        ar = torch.arange(lut.shape[0], device=lut.device)[None, :]
+        return lambda: lut[ar, idx].sum(-1)
+    if op == "byteplane":
+        packed, base = args
+        return lambda: torch.bitwise_xor(packed, base)
     return None
 
 
-def report(torch, parity, shard, launches):
+def report(torch, parity, launches):
     kernels = []
     for op, args in parity.shard_in.items():
         kern, plain = parity.ops[op]
@@ -667,8 +939,7 @@ def report(torch, parity, shard, launches):
         nbytes, ops = bounds(torch, op, args)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / FP32_OPS_PER_S * 1e3
-        n_launch = (shard.build_launches[op] if op == "pq_encode"
-                    else launches[op])
+        n_launch = launches[op]
         check(n_launch > 0, f"{op} has no launches on its path")
         shapes = [tuple(a.shape) for a in args if hasattr(a, "shape")]
         kernels.append({

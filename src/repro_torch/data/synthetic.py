@@ -11,9 +11,10 @@ paper's workloads (§4.1, Table 2).
                  byte-positional locality (exponent bytes nearly constant).
 
 The numpy generators are copies of ``repro.data.synthetic`` (same seeds,
-same bytes). ``sift_like_torch`` draws the same distribution on a device
-from a ``torch.Generator``: a shard of tens of millions of vectors is made
-where it will be searched instead of being copied over from the host.
+same bytes). ``sift_like_torch`` and ``prop_like_torch`` draw the same
+distributions on a device from a ``torch.Generator``: a shard of tens of
+millions of vectors is made where it will be stored and searched instead of
+being copied over from the host.
 """
 from __future__ import annotations
 
@@ -101,4 +102,26 @@ def sift_like_torch(n: int, dim: int, seed: int, device,
         b = min(a + chunk, n)
         raw = torch._standard_gamma(alpha[:b - a], generator=g) * scale
         out[a:b] = raw.clamp_(0, 255).to(torch.uint8)
+    return out
+
+
+def prop_like_torch(n: int, dim: int, seed: int, device,
+                    chunk: int = 1 << 18) -> torch.Tensor:
+    """``prop-like`` [n, dim] float32 drawn on ``device``: Gaussian rows
+    scaled by a per-dimension spectrum ~ U(0.2, 1)^2, L2-normalised (+1e-12)
+    and rounded to 3 decimals in float64 before the cast, as
+    ``make_vector_dataset`` does. Same distribution, not the same bytes: the
+    draws come from a ``torch.Generator`` seeded with ``seed``, in row
+    chunks so the float64 temporaries stay small."""
+    device = torch.device(device)
+    g = torch.Generator(device=device).manual_seed(seed)
+    spectrum = torch.empty(dim, dtype=torch.float64, device=device).uniform_(
+        0.2, 1.0, generator=g) ** 2
+    out = torch.empty((n, dim), dtype=torch.float32, device=device)
+    for a in range(0, n, chunk):
+        b = min(a + chunk, n)
+        raw = torch.randn((b - a, dim), dtype=torch.float64, generator=g,
+                          device=device) * spectrum
+        raw /= torch.linalg.vector_norm(raw, dim=1, keepdim=True) + 1e-12
+        out[a:b] = torch.round(raw, decimals=3).float()
     return out

@@ -28,9 +28,9 @@ REQUESTED = ("auto", "off")
 
 
 class KernelConfig(NamedTuple):
-    """Per-op backend request. ``byteplane`` is kept for parity with the
-    reference's config; its op is not on the search path and not ported
-    yet."""
+    """Per-op backend request, the reference's five fields. ``pq_adc``
+    drives both ADC ops (batched and single-LUT); ``byteplane`` drives the
+    vector store's XOR-delta inverse on loads."""
     pq_adc: str = "auto"
     ef_decode: str = "auto"
     rerank_l2: str = "auto"
@@ -69,17 +69,22 @@ def resolve_backend(requested: str, device: torch.device | None,
 @functools.lru_cache(maxsize=1)
 def _registry() -> dict[tuple[str, str], Callable]:
     from .beam_step.beam_step import beam_step_cuda, beam_step_ref
+    from .byteplane.byteplane import (byteplane_decode_cuda,
+                                      byteplane_decode_ref)
     from .ef_decode.ef_decode import ef_decode_cuda, ef_decode_ref
-    from .pq_adc.pq_adc import pq_adc_batched_cuda, pq_adc_batched_ref
+    from .pq_adc.pq_adc import (pq_adc_batched_cuda, pq_adc_batched_ref,
+                                pq_adc_cuda, pq_adc_ref)
     from .pq_encode.pq_encode import pq_encode_cuda, pq_encode_ref
     from .rerank_l2.rerank_l2 import rerank_l2_cuda, rerank_l2_ref
 
     table: dict[tuple[str, str], Callable] = {}
     for op, ref, kern in (
+            ("pq_adc", pq_adc_ref, pq_adc_cuda),
             ("pq_adc_batched", pq_adc_batched_ref, pq_adc_batched_cuda),
             ("ef_decode", ef_decode_ref, ef_decode_cuda),
             ("rerank_l2", rerank_l2_ref, rerank_l2_cuda),
             ("beam_step", beam_step_ref, beam_step_cuda),
+            ("byteplane", byteplane_decode_ref, byteplane_decode_cuda),
             ("pq_encode", pq_encode_ref, pq_encode_cuda)):
         table[op, "ref"] = ref
         table[op, "cuda"] = kern
@@ -109,6 +114,12 @@ def _impl(op: str, requested: str, t: torch.Tensor) -> Callable:
 
 
 # ------------------------------------------------------------- public ops
+def pq_adc(codes, lut, cfg: KernelConfig | None = None):
+    """[n, M] codes x [M, K] LUT -> [n] ADC distances."""
+    cfg = cfg or KernelConfig()
+    return _impl("pq_adc", cfg.pq_adc, codes)(codes, lut)
+
+
 def pq_adc_batched(codes, luts, cfg: KernelConfig | None = None):
     """[nq, n, M] codes x [nq, M, K] per-query LUTs -> [nq, n]."""
     cfg = cfg or KernelConfig()
@@ -127,6 +138,12 @@ def rerank_l2(queries, cands, cfg: KernelConfig | None = None):
     """[Q, D] queries x [Q, C, D] candidates -> squared L2 [Q, C]."""
     cfg = cfg or KernelConfig()
     return _impl("rerank_l2", cfg.rerank_l2, cands)(queries, cands)
+
+
+def byteplane_decode(packed, base, cfg: KernelConfig | None = None):
+    """[n, V] uint8 XOR [V] uint8 base -> [n, V] uint8 (lossless)."""
+    cfg = cfg or KernelConfig()
+    return _impl("byteplane", cfg.byteplane, packed)(packed, base)
 
 
 def beam_step(codes, luts, cand_ids, cand_d, new_ids,

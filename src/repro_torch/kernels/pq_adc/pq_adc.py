@@ -1,11 +1,19 @@
-"""Batched PQ ADC: ``[nq, n, M]`` codes x ``[nq, M, K]`` per-query LUTs ->
-``[nq, n]`` distances, each query's rows scored against its own LUT.
+"""PQ ADC, batched and single-LUT.
 
+Batched: ``[nq, n, M]`` codes x ``[nq, M, K]`` per-query LUTs -> ``[nq, n]``
+distances, each query's rows scored against its own LUT.
 ``pq_adc_batched_cuda`` launches ``csrc/pq_adc_batched.cu`` (the port of
 ``repro/kernels/pq_adc/pq_adc.py::pq_adc_batched_pallas``);
 ``pq_adc_batched_ref`` is its plain PyTorch version (the reference's
-``pq_adc_batched_ref``). Both fold over m = 0..M-1 in order, which is also
-what jnp's ``.sum(-1)`` does for these widths, so results are bit-equal.
+``pq_adc_batched_ref``).
+
+Single LUT: ``[n, M]`` uint8 or int32 codes x ``[M, K]`` LUT -> ``[n]``.
+``pq_adc_cuda`` launches ``csrc/pq_adc.cu`` (the port of
+``pq_adc_pallas``), with its own launch counter; ``pq_adc_ref`` is the
+reference's ``pq_adc_ref``.
+
+Every version folds over m = 0..M-1 in order, which is also what jnp's
+``.sum(-1)`` does for these widths, so results are bit-equal.
 """
 import torch
 
@@ -35,4 +43,27 @@ def pq_adc_batched_cuda(codes: torch.Tensor,
     if nq * n:
         launch("pq_adc_batched", "pq_adc_batched", codes, luts, out,
                nq, n, m, luts.shape[2])
+    return out
+
+
+def pq_adc_ref(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
+    acc = lut[0][codes[:, 0].to(torch.int64)]
+    for j in range(1, codes.shape[1]):
+        acc += lut[j][codes[:, j].to(torch.int64)]
+    return acc
+
+
+def pq_adc_cuda(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
+    if codes.dtype not in (torch.uint8, torch.int32) \
+            or lut.dtype != torch.float32:
+        raise TypeError("pq_adc takes uint8 or int32 codes and a float32 LUT")
+    n, m = codes.shape
+    if lut.dim() != 2 or lut.shape[0] != m or m == 0:
+        raise ValueError(f"LUT {tuple(lut.shape)} does not match codes "
+                         f"{tuple(codes.shape)}")
+    dev = check_cuda(codes, lut)
+    out = torch.empty((n,), dtype=torch.float32, device=dev)
+    if n:
+        launch("pq_adc", "pq_adc", codes, lut, out, n, m, lut.shape[1],
+               codes.element_size())
     return out

@@ -1,6 +1,7 @@
 """Tests of ``repro_torch`` that need a CUDA card: each hand-written kernel
-against its plain PyTorch version on the card, bit for bit, and a search
-on the card against the same search on the CPU. Every test is marked
+against its plain PyTorch version on the card, bit for bit, a search on
+the card against the same search on the CPU, and the vector store sealed
+and loaded on the card against the same store on the CPU. Every test is marked
 ``cuda`` and skips without a card. The file imports neither ``jax`` nor
 ``repro``, so it runs where only the port is installed:
 
@@ -19,13 +20,18 @@ from repro_torch.core.index import build_device_index
 from repro_torch.core.search.beam import DeviceIndex, SearchParams, search
 from repro_torch.data.synthetic import make_queries, make_vector_dataset
 from repro_torch.kernels import build
+from repro_torch.core.storage.vector_store import (DecoupledVectorStore,
+                                                   StoreConfig)
 from repro_torch.kernels.beam_step.beam_step import (beam_step_cuda,
                                                      beam_step_ref)
+from repro_torch.kernels.byteplane.byteplane import (byteplane_decode_cuda,
+                                                     byteplane_decode_ref)
 from repro_torch.kernels.dispatch import KernelConfig
 from repro_torch.kernels.ef_decode.ef_decode import (ef_decode_cuda,
                                                      ef_decode_ref)
 from repro_torch.kernels.pq_adc.pq_adc import (pq_adc_batched_cuda,
-                                               pq_adc_batched_ref)
+                                               pq_adc_batched_ref,
+                                               pq_adc_cuda, pq_adc_ref)
 from repro_torch.kernels.pq_encode.pq_encode import (pq_encode_cuda,
                                                      pq_encode_ref)
 from repro_torch.kernels.rerank_l2.rerank_l2 import (rerank_l2_cuda,
@@ -39,6 +45,24 @@ def adc_case(nq, n, m, seed, equal_codes=False):
         codes[:] = 3
     luts = rng.normal(size=(nq, m, 256)).astype(np.float32)
     return codes, luts
+
+
+def single_adc_case(n, m, seed, dtype=np.uint8, equal_codes=False):
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 256, (n, m)).astype(dtype)
+    if equal_codes:
+        codes[:] = 3
+    return codes, rng.normal(size=(m, 256)).astype(np.float32)
+
+
+def byteplane_case(n, v, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 256, (n, v), dtype=np.uint8),
+            rng.integers(0, 256, v, dtype=np.uint8))
+
+
+BYTEPLANE_SHAPES = [(n, v) for n in (0, 1, 255, 256, 257, 4096)
+                    for v in (1, 100, 128, 512)]
 
 
 def ef_slots(r_max, universe, seed):
@@ -118,6 +142,66 @@ def test_pq_adc_batched_kernel(cuda, nq, n, m, equal):
                                       equal_codes=equal))
     assert_bits_equal(pq_adc_batched_cuda(codes, luts),
                       pq_adc_batched_ref(codes, luts))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,dtype,equal", [(1, 8, np.uint8, False),
+                                             (1024, 8, np.uint8, False),
+                                             (4096, 8, np.int32, False),
+                                             (3000, 32, np.uint8, False),
+                                             (129, 32, np.uint8, True)])
+def test_pq_adc_kernel(cuda, n, m, dtype, equal):
+    codes, lut = _on(cuda, *single_adc_case(n, m, seed=n + m, dtype=dtype,
+                                            equal_codes=equal))
+    assert_bits_equal(pq_adc_cuda(codes, lut), pq_adc_ref(codes, lut))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,v", BYTEPLANE_SHAPES)
+def test_byteplane_kernel(cuda, n, v):
+    packed, base = _on(cuda, *byteplane_case(n, v, seed=n + v))
+    assert_bits_equal(byteplane_decode_cuda(packed, base),
+                      byteplane_decode_ref(packed, base))
+
+
+@pytest.mark.cuda
+def test_byteplane_kernel_on_unaligned_rows(cuda):
+    """A slice that starts mid-word (100-byte rows) takes the byte-wise
+    path and still equals the plain version."""
+    packed, base = _on(cuda, *byteplane_case(300, 100, seed=9))
+    rows = packed[1:258]
+    assert rows.data_ptr() % 16
+    assert_bits_equal(byteplane_decode_cuda(rows, base),
+                      byteplane_decode_ref(rows, base))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["auto", "xor_delta_huffman", "raw"])
+def test_vector_store_on_card_matches_cpu(cuda, codec):
+    """Seal and load on the card (byteplane launched for every chunk with
+    a base) equal the same store on the CPU, byte for byte."""
+    vecs = make_vector_dataset("prop-like", 4096, 128, seed=0)
+    stores = []
+    for dev in (cuda, "cpu"):
+        s = DecoupledVectorStore(StoreConfig(
+            dim=128, dtype=np.float32, segment_capacity=4096,
+            chunk_bytes=1 << 20, vector_codec=codec, device=dev))
+        s.append(np.arange(4096), vecs)
+        s.seal_active()
+        stores.append(s)
+    card, cpu = stores
+    a, b = card.sealed[0], cpu.sealed[0]
+    assert_bits_equal(a.packed.data, b.packed.data)
+    assert [c.base is None for c in a.chunks] == \
+        [c.base is None for c in b.chunks]
+    build.reset_launches()
+    rows = np.random.default_rng(0).permutation(4096)
+    got = card.get(rows)
+    based = sum(c.base is not None for c in a.chunks)
+    assert build.LAUNCHES["byteplane"] == based
+    assert_bits_equal(got, vecs[rows])
+    assert_bits_equal(got, cpu.get(rows))
+    assert card.io.snapshot() == cpu.io.snapshot()
 
 
 @pytest.mark.cuda

@@ -7,8 +7,8 @@ which also holds the seeded case makers used here.
 
 Inputs are made with numpy from a seed and handed to both packages.
 Tolerances: bit-exact wherever both sides fold in the same order (ADC over
-m, EF decode, the fused hop's ids and top_idx, rerank at D <= 32); the
-Pallas kernels compute ADC and rerank as matmuls, so against
+m, EF decode, byteplane's XOR, the fused hop's ids and top_idx, rerank at
+D <= 32); the Pallas kernels compute ADC and rerank as matmuls, so against
 ``pallas-interpret`` distances are held to the conformance tier's own
 tolerances; jnp's rerank sum at D = 128 is no left fold, so there rtol is
 1e-6.
@@ -20,20 +20,28 @@ import torch
 
 from repro.core.graph.pq import PQCodebook, encode_pq
 from repro.kernels import dispatch as jdispatch
+from repro.kernels.byteplane.byteplane import byteplane_decode_pallas
+from repro.kernels.byteplane.ref import byteplane_decode_ref as jbyteplane
+from repro.kernels.pq_adc.pq_adc import pq_adc_pallas
+from repro.kernels.pq_adc.ref import pq_adc_ref as jpq_adc
 from repro.kernels.dispatch import KernelConfig as JKernelConfig
 
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.beam_step.beam_step import beam_step_ref
+from repro_torch.kernels.byteplane.byteplane import (byteplane_decode_cuda,
+                                                     byteplane_decode_ref)
 from repro_torch.kernels.dispatch import KernelConfig, get_impl
 from repro_torch.kernels.ef_decode.ef_decode import ef_decode_ref
 from repro_torch.kernels.pq_adc.pq_adc import (pq_adc_batched_cuda,
-                                               pq_adc_batched_ref)
+                                               pq_adc_batched_ref,
+                                               pq_adc_cuda, pq_adc_ref)
 from repro_torch.kernels.pq_encode.pq_encode import pq_encode_ref
 from repro_torch.kernels.rerank_l2.rerank_l2 import (rerank_l2_cuda,
                                                      rerank_l2_ref)
 
-from test_torch_cuda import (BEAM_CASES, adc_case, assert_bits_equal,
-                             beam_case, ef_slots)
+from test_torch_cuda import (BEAM_CASES, BYTEPLANE_SHAPES, adc_case,
+                             assert_bits_equal, beam_case, byteplane_case,
+                             ef_slots, single_adc_case)
 
 JREF = JKernelConfig("ref", "ref", "ref", "ref", "ref")
 JPAL = JKernelConfig(*(["pallas-interpret"] * 5))
@@ -61,6 +69,39 @@ def test_pq_adc_batched_all_equal_codes():
     assert all(len(set(row.tolist())) == 1 for row in got)
     assert_bits_equal(got, jdispatch.pq_adc_batched(
         jnp.asarray(codes), jnp.asarray(luts), JREF))
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.int32])
+@pytest.mark.parametrize("n,m", [(1, 8), (1024, 8), (4096, 8), (300, 32),
+                                 (7, 1)])
+def test_pq_adc_matches_reference(n, m, dtype):
+    codes, lut = single_adc_case(n, m, seed=n + m, dtype=dtype)
+    got = pq_adc_ref(T(codes), T(lut))
+    assert_bits_equal(got, jpq_adc(jnp.asarray(codes), jnp.asarray(lut)))
+    assert_bits_equal(dispatch.pq_adc(T(codes), T(lut)), got)
+    pal = pq_adc_pallas(jnp.asarray(codes), jnp.asarray(lut), interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pal), rtol=1e-6,
+                               atol=1e-5)
+
+
+def test_pq_adc_all_equal_codes():
+    codes, lut = single_adc_case(129, 32, seed=5, equal_codes=True)
+    got = pq_adc_ref(T(codes), T(lut)).numpy()
+    assert len(set(got.tolist())) == 1
+    assert_bits_equal(got, jpq_adc(jnp.asarray(codes), jnp.asarray(lut)))
+
+
+# --------------------------------------------------------------- byteplane
+@pytest.mark.parametrize("n,v", BYTEPLANE_SHAPES)
+def test_byteplane_matches_reference(n, v):
+    packed, base = byteplane_case(n, v, seed=n + v)
+    got = byteplane_decode_ref(T(packed), T(base))
+    assert_bits_equal(got, jbyteplane(jnp.asarray(packed), jnp.asarray(base)))
+    assert_bits_equal(dispatch.byteplane_decode(T(packed), T(base)), got)
+    if n:    # the Pallas grid needs a row block
+        assert_bits_equal(got, byteplane_decode_pallas(
+            jnp.asarray(packed), jnp.asarray(base), interpret=True))
+    assert_bits_equal(byteplane_decode_ref(got, T(base)), packed)
 
 
 # --------------------------------------------------------------- ef_decode
@@ -201,7 +242,7 @@ def test_dispatch_refuses_unknown_and_unresolved_backends():
     with pytest.raises(RuntimeError, match="branch"):
         get_impl("beam_step", "off")
     with pytest.raises(KeyError):
-        get_impl("byteplane", "cuda")
+        get_impl("no_such_op", "cuda")
 
 
 def test_kernel_build_needs_nvcc(tmp_path, monkeypatch):
@@ -230,3 +271,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         pq_adc_batched_cuda(T(codes), T(luts))
     with pytest.raises(ValueError, match="CUDA"):
         rerank_l2_cuda(T(luts[:, 0]), T(luts))
+    with pytest.raises(ValueError, match="CUDA"):
+        pq_adc_cuda(T(codes[0]), T(luts[0]))
+    packed, base = byteplane_case(4, 8, seed=0)
+    with pytest.raises(ValueError, match="CUDA"):
+        byteplane_decode_cuda(T(packed), T(base))
