@@ -41,9 +41,13 @@ Phases (any fault exits non-zero; there is no CPU fallback):
    shard freed, --prop-n prop-like float32 vectors drawn on the card,
    sealed (XOR-delta must win in some chunk) and loaded back through the
    byteplane kernel (bit-exact; its launches are counted).
-5. report — per-kernel times at the shard's shapes (CUDA events, median),
-   the plain version's and a library call's where one computes the same
-   function, the bound, then the contract's last lines.
+5. report — per-kernel times at the shard's shapes (CUDA events, median;
+   taken before phase 4b, so the storage phase does not hold the shard's
+   tables twice; the kernels that read rows by id cycle through fresh id
+   sets), the plain version's and a library call's where one computes the
+   same function, the bound, the torch row gathers those kernels absorbed
+   beside a hand-written gather, beam_step's time by survivors, then the
+   contract's last lines.
 """
 from __future__ import annotations
 
@@ -129,10 +133,11 @@ def main() -> int:
     shard.verify_slots()
     parity.run_shard(shard)
     launches = shard.search()
+    times = time_kernels(torch, parity)                    # 5. report: times
     storage = Storage(torch, shard, args)                  # 4b. storage
     launches.update(storage.run())
     launches["pq_encode"] = shard.build_launches["pq_encode"]
-    kernels = report(torch, parity, launches)              # 5. report
+    kernels = report(parity, launches, times)              # 5. report
 
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -171,6 +176,8 @@ def prop_like_chunk(torch, dev, rows=8192, dim=128, seed=7):
 class Parity:
     """Each kernel wrapper against its plain version on the same CUDA
     inputs; every case must agree bit for bit."""
+
+    COLD_SETS = 8     # id sets the by-id kernels cycle through when timed
 
     def __init__(self, torch, seed):
         from repro_torch.kernels.beam_step import beam_step as bs
@@ -226,20 +233,63 @@ class Parity:
         base = build_base_torch(vb)
         return (vb ^ base).contiguous(), base
 
-    def beam_case(self, nq, e, l_size, m, mask_p=0.85, ties=False, k=256):
+    def beam_case(self, nq, e, l_size, m, mask_p=0.85, ties=False, k=256,
+                  table=None, cands="sorted", ids="random"):
+        """(pq_codes, luts, cand_ids, cand_d, new_ids) of one hop; the
+        table is drawn (3E + 5 rows) unless given. ``cands``: "sorted",
+        "unsorted" or "first-hop" (one finite candidate); ``ids``:
+        "random", "edges" (0, n-1 and past the end) or "repeated"."""
         torch = self.torch
-        codes = self.randint(256, nq, e, m, dtype=torch.uint8)
+        if table is None:
+            table = self.randint(256, 3 * e + 5, m, dtype=torch.uint8)
+        n = table.shape[0]
         luts = self.rand(nq, m, k)
         if ties:   # quantize hard so merged distances collide constantly
             luts = luts.round()
-        cand_d = (self.rand(nq, l_size) ** 2).sort(1).values
+        cand_d = self.rand(nq, l_size) ** 2
         if ties:
             cand_d = (cand_d * 2).round() / 2
+        if cands != "unsorted":
+            cand_d = cand_d.sort(1).values
         cand_ids = self.randint(10**6, nq, l_size, dtype=torch.int32)
+        if cands == "first-hop":
+            cand_d[:, 1:] = torch.inf
+            cand_ids[:, 1:] = -1
+        if ids == "edges":
+            edge = torch.tensor([0, n - 1, n, n + 7, 1], device=self.dev)
+            rows = edge[self.randint(5, nq, e)]
+        elif ids == "repeated":
+            rows = self.randint(3, nq, e)
+        else:
+            rows = self.randint(n, nq, e)
         keep = torch.rand(nq, e, generator=self.g, device=self.dev) < mask_p
-        new_ids = torch.where(keep, self.randint(10**6, nq, e), -1).to(
-            torch.int32)
-        return codes, luts, cand_ids, cand_d.contiguous(), new_ids
+        new_ids = torch.where(keep, rows, -1).to(torch.int32)
+        return table, luts, cand_ids, cand_d.contiguous(), new_ids
+
+    def beam_cases(self, label, nq, e, l_size, m, table=None):
+        """The fused hop's cases at one shape: random rows, an unsorted
+        candidate half, the first hop, ids at the table's edges, repeated
+        ids, an all-masked hop."""
+        for kw in (dict(), dict(cands="unsorted"), dict(cands="first-hop"),
+                   dict(ids="edges"), dict(ids="repeated"),
+                   dict(mask_p=0.0)):
+            args = self.beam_case(nq, e, l_size, m, table=table, **kw)
+            ids, d, ix = self.compare("beam_step", f"{label} {kw}", *args)
+            if kw.get("mask_p") == 0.0:
+                want = self.torch.arange(l_size, device=self.dev)
+                check(bool(self.torch.equal(ids, args[2]))
+                      and bool((ix == want).all()), "beam_step all-masked: "
+                      "the candidate list must pass through")
+
+    def ef_ids(self, n, b):
+        """[b] row ids into n slots: random, both edges, repeats, and ids
+        past either end (they clip)."""
+        torch = self.torch
+        ids = self.randint(n, b, dtype=torch.int32)
+        edge = torch.tensor([0, n - 1, n - 1, 0, -3, n + 93, 1 % n, 1 % n],
+                            dtype=torch.int32, device=self.dev)
+        ids[:min(b, 8)] = edge[:min(b, 8)]
+        return ids
 
     def ef_case(self, r_max, universe, lens):
         from repro_torch.core.codec.elias_fano import encode_slots_torch
@@ -258,6 +308,13 @@ class Parity:
         check(bool((nb.long()[live] == vals[live]).all())
               and bool((nb[~live] == universe - 1).all()),
               f"ef_decode r={r_max} U={universe}: values not recovered")
+        ids = self.ef_ids(b, 3 * b)
+        nb_i, ct_i = self.compare("ef_decode", f"r={r_max} U={universe} ids",
+                                  slots, r_max, universe, ids)
+        rows = ids.long().clamp(0, b - 1)
+        check(bool(torch.equal(nb_i, nb[rows]))
+              and bool(torch.equal(ct_i, ct[rows])),
+              f"ef_decode r={r_max} U={universe}: a row by id != its slot")
         return slots
 
     def run_small(self):
@@ -284,19 +341,31 @@ class Parity:
         self.compare("ef_decode", "zero slots",
                      torch.zeros((3, 8), dtype=torch.int32,
                                  device=self.dev), 24, 1200)
-        # beam_step: ragged, ties, all masked, the small world's hop
+        self.compare("ef_decode", "empty ids", self.ef_case(8, 64, [1, 2]),
+                     8, 64, torch.zeros(0, dtype=torch.int32,
+                                        device=self.dev))
+        # beam_step: ragged, odd and wide rows, ties, the small world's hop
         for nq, e, l_size, m in [(1, 1, 1, 1), (3, 5, 4, 8), (7, 130, 48, 4),
                                  (2, 17, 10, 16), (8, 64, 32, 8),
-                                 (32, 96, 48, 8)]:
+                                 (3, 30, 12, 3), (3, 20, 8, 33),
+                                 (3, 20, 8, 48), (5, 700, 40, 8),
+                                 (2, 9, 300, 8)]:
             self.compare("beam_step", f"{nq}x{e}x{l_size}x{m}",
                          *self.beam_case(nq, e, l_size, m))
-        self.compare("beam_step", "ties",
-                     *self.beam_case(4, 40, 16, 4, ties=True))
-        args = self.beam_case(3, 12, 8, 8, mask_p=0.0)
-        ids, d, ix = self.compare("beam_step", "all masked", *args)
-        check(bool(torch.equal(ids, args[2])) and bool(
-            (ix == torch.arange(8, device=self.dev)).all()),
-            "beam_step all-masked: candidate list must pass through")
+        for cands in ("sorted", "unsorted"):
+            self.compare("beam_step", f"ties {cands}", *self.beam_case(
+                4, 40, 16, 4, ties=True, cands=cands))
+        # tables and LUTs off 16-byte alignment (narrower loads, no bulk)
+        args = list(self.beam_case(4, 50, 20, 16))
+        flat = torch.empty(args[0].numel() + 4, dtype=torch.uint8,
+                           device=self.dev)
+        args[0] = flat[4:].view(args[0].shape).copy_(args[0])
+        flat = torch.empty(args[1].numel() + 1, device=self.dev)
+        args[1] = flat[1:].view(args[1].shape).copy_(args[1])
+        self.compare("beam_step", "unaligned table and LUTs", *args)
+        # the small world's hop (n=1200, M=8, E=W*R=96, L=48)
+        self.beam_cases("world", 32, 96, 48, 8, table=self.randint(
+            256, 1200, 8, dtype=torch.uint8))
         # rerank_l2: D in {32, 128}, f32 and u8, equal rows
         for q, c, d in [(1, 1, 8), (7, 20, 100), (32, 10, 32), (9, 130, 128),
                         (3, 5, 129)]:
@@ -349,22 +418,47 @@ class Parity:
         nq, W, R, L = shard.nq, shard.p.beam_width, shard.R, shard.p.l_size
         n = shard.n
         luts = shard.luts()
-        sel = self.randint(n, nq, W * R)
-        codes = shard.index.pq_codes[sel]
-        new_ids = torch.where(
-            torch.rand(nq, W * R, generator=self.g, device=self.dev) < 0.6,
-            sel, -1).to(torch.int32)
+        pq_codes = shard.index.pq_codes
         cand_ids = self.randint(n, nq, L, dtype=torch.int32)
         cand_d = self.compare("pq_adc_batched", "shard hop",
-                              shard.index.pq_codes[cand_ids], luts)[0]
+                              pq_codes[cand_ids], luts)[0]
         cand_d, order = cand_d.sort(1)
         cand_ids = torch.gather(cand_ids, 1, order)
+        cand_d = cand_d.contiguous()
+
+        def hop_ids():     # one hop's fresh neighbour ids, 60% kept
+            sel = self.randint(n, nq, W * R)
+            return torch.where(torch.rand(nq, W * R, generator=self.g,
+                                          device=self.dev) < 0.6,
+                               sel, -1).to(torch.int32)
+        # fresh id sets, so the timed calls find their rows cold (report)
+        self.cold = {
+            "beam_step": [(pq_codes, luts, cand_ids, cand_d, hop_ids())
+                          for _ in range(self.COLD_SETS)],
+            "ef_decode": [(shard.index.ef_slots, R, n,
+                           self.randint(n, nq * W, dtype=torch.int32))
+                          for _ in range(self.COLD_SETS)]}
+        # the search's steady state: the candidate half holds the best L
+        # of 4,096 rows a query, so few new ids beat its last entry
+        deep = self.randint(n, nq, 4096, dtype=torch.int32)
+        deep_d, order = self.ops["pq_adc_batched"][0](pq_codes[deep],
+                                                      luts).sort(1)
+        steady = (torch.gather(deep, 1, order[:, :L]).contiguous(),
+                  deep_d[:, :L].contiguous())
+        del deep, deep_d, order
+        self.beam_regimes = {
+            "all masked": [(pq_codes, luts, cand_ids, cand_d,
+                            torch.full((nq, W * R), -1, dtype=torch.int32,
+                                       device=self.dev))],
+            "steady state": [(pq_codes, luts, *steady, hop_ids())
+                             for _ in range(self.COLD_SETS)],
+            "timed set": self.cold["beam_step"]}
+        new_ids = self.cold["beam_step"][0][4]
+        codes = pq_codes[new_ids.clamp(0, n - 1)]
         self.shard_in = {
             "pq_adc_batched": (codes, luts),
-            "beam_step": (codes, luts, cand_ids, cand_d.contiguous(),
-                          new_ids),
-            "ef_decode": (shard.index.ef_slots[self.randint(n, nq * W)],
-                          R, n),
+            "beam_step": self.cold["beam_step"][0],
+            "ef_decode": self.cold["ef_decode"][0],
             "rerank_l2": (shard.queries, shard.index.vectors[
                 self.randint(n, nq, shard.p.rerank_batch)]),
             "pq_encode": (shard.index.vectors[:1 << 18].clone(),
@@ -377,16 +471,21 @@ class Parity:
         self.compare("byteplane", "shard SIFT chunk", *self.delta_chunk(
             shard.index.vectors[:32768]))
         self.compare("pq_adc_batched", "shard entry",
-                     shard.index.pq_codes[sel[:, :1]], luts)
+                     pq_codes[cand_ids[:, :1]], luts)
         for op, args in self.shard_in.items():
             out = self.compare(op, "shard", *args)
             if op == "pq_encode":
                 check(bool(torch.equal(out[0],
                                        shard.index.pq_codes[:1 << 18])),
                       "pq_encode: codes differ from the shard's")
-        all_masked = list(self.shard_in["beam_step"])
-        all_masked[4] = torch.full_like(new_ids, -1)
-        self.compare("beam_step", "shard all masked", *all_masked)
+        self.beam_cases("shard", nq, W * R, L, shard.M, table=pq_codes)
+        self.compare("beam_step", "shard steady state",
+                     *self.beam_regimes["steady state"][0])
+        self.compare("ef_decode", "shard ids at the edges",
+                     shard.index.ef_slots, R, n, self.ef_ids(n, nq * W))
+        self.compare("ef_decode", "shard repeated ids",
+                     shard.index.ef_slots, R, n,
+                     self.randint(3, nq * W, dtype=torch.int32))
         log(f"parity shard: {dict(self.cases)} cases bit-exact "
             f"({time.time() - t0:.1f} s)")
 
@@ -634,19 +733,24 @@ class Shard:
         log(f"launches fused: {fused}")
         log(f"launches off: {off}")
         self.profile(walls["auto"][0])
+        self.profile(walls["off"][0], "off")
         return {name: total[name] for name in
                 ("beam_step", "ef_decode", "pq_adc_batched", "rerank_l2")}
 
-    def profile(self, wall: float):
-        """Device busy time of one fused search, by kernel (torch.profiler
-        over CUPTI), against the search's wall time."""
+    def profile(self, wall: float, mode: str = "auto"):
+        """Device busy time of one search (fused, or unfused for ``off``),
+        by kernel (torch.profiler over CUPTI), against the search's wall
+        time; and the device time of the row-gather ops by input shape."""
         from torch.profiler import ProfilerActivity, profile
         from repro_torch.core.search.beam import search
+        from repro_torch.kernels.dispatch import KernelConfig
         torch = self.torch
+        p = self.p._replace(kernels=KernelConfig(beam_step=mode))
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+                                 ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
             t0 = time.perf_counter()
-            search(self.index, self.queries, self.p)
+            search(self.index, self.queries, p)
             torch.cuda.synchronize()
             prof_wall = time.perf_counter() - t0
         # device-side events only (kernels, memsets, copies): the CPU ops
@@ -656,16 +760,26 @@ class Shard:
                 if ev.device_type == torch.autograd.DeviceType.CUDA
                 and ev.self_device_time_total > 0]
         busy = sum(r[0] for r in rows) / 1e6
+        tag = "fused" if mode == "auto" else "unfused"
         if not rows:
-            log("profile: the profiler recorded no device time: device "
-                "busy share not measured")
+            log(f"profile ({tag} search): the profiler recorded no device "
+                f"time: device busy share not measured")
             return
         rows.sort(reverse=True)
         top = "; ".join(f"{k} {us / 1e3:.2f} ms x{c}" for us, c, k in rows[:8])
-        log(f"profile (fused search): device busy {busy * 1e3:.2f} ms = "
+        log(f"profile ({tag} search): device busy {busy * 1e3:.2f} ms = "
             f"{100 * busy / wall:.1f}% of the unprofiled wall {wall:.3f} s "
             f"({100 * busy / prof_wall:.1f}% of the profiled "
             f"{prof_wall:.3f} s); top device time: {top}")
+        ops = sorted(
+            ((ev.device_time_total, ev.count, ev.key, ev.input_shapes)
+             for ev in prof.key_averages(group_by_input_shape=True)
+             if ev.key in ("aten::index", "aten::gather",
+                           "aten::index_select", "aten::take")
+             and ev.device_time_total > 0), reverse=True)
+        log(f"profile ({tag} search): row-gather ops by input shape: "
+            + "; ".join(f"{k} {sh} x{c} {us / 1e3:.2f} ms"
+                        for us, c, k, sh in ops[:8]))
 
 
 # ----------------------------------------------------------------- storage
@@ -853,18 +967,21 @@ class Storage:
 
 
 # ------------------------------------------------------------------ report
-def cuda_ms(torch, fn, reps=20) -> float:
-    """Median device time of one call, in ms. The calls queue behind a
-    device sleep of ~0.1 s, so the host's enqueue cost (Python, ctypes)
-    stays out of the events: each pair brackets one call's device work."""
-    fn()
+def cuda_ms(torch, fns, reps=20) -> float:
+    """Median device time of one call, in ms. ``fns`` is one callable, or
+    a list cycled call by call (one per fresh id set, so each call finds
+    its rows cold, as a hop does). The calls queue behind a device sleep of
+    ~0.1 s, so the host's enqueue cost (Python, ctypes) stays out of the
+    events: each pair brackets one call's device work."""
+    fns = fns if isinstance(fns, list) else [fns]
+    fns[-1]()
     torch.cuda.synchronize()
     ev = [(torch.cuda.Event(enable_timing=True),
            torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
     torch.cuda._sleep(200_000_000)
-    for s, e in ev:
+    for i, (s, e) in enumerate(ev):
         s.record()
-        fn()
+        fns[i % len(fns)]()
         e.record()
     torch.cuda.synchronize()
     ts = sorted(s.elapsed_time(e) for s, e in ev)
@@ -877,16 +994,17 @@ def bounds(torch, op, args):
         codes, luts = args
         nq, n, m = codes.shape
         return codes.numel() + luts.numel() * 4 + nq * n * 4, nq * n * (m - 1)
-    if op == "beam_step":
-        codes, luts, cand_ids, cand_d, new_ids = args
-        nq, e, m = codes.shape
+    if op == "beam_step":      # only the rows of valid ids are read
+        pq_codes, luts, cand_ids, cand_d, new_ids = args
+        m = pq_codes.shape[1]
         valid = int((new_ids >= 0).sum())
-        l_size = cand_ids.shape[1]
+        nq, l_size = cand_ids.shape
         return (valid * m + luts.numel() * 4 + nq * l_size * 8
                 + new_ids.numel() * 4 + nq * l_size * 12), valid * (m - 1)
-    if op == "ef_decode":
-        slots, r_max, _ = args
-        return slots.numel() * 4 + slots.shape[0] * (r_max + 1) * 4, 0
+    if op == "ef_decode":      # only the rows of the ids are read
+        slots, r_max, _, ids = args
+        b = ids.numel()
+        return b * slots.shape[1] * 4 + b * 4 + b * (r_max + 1) * 4, 0
     if op == "rerank_l2":
         q, x = args
         return (q.numel() * 4 + x.numel() * x.element_size()
@@ -928,30 +1046,99 @@ def library_call(torch, op, args):
     return None
 
 
-def report(torch, parity, launches):
-    kernels = []
+def absorbed_gathers(torch, parity) -> None:
+    """The row gathers the hop issued in front of beam_step and ef_decode
+    before those kernels read their rows by id: the torch index op as the
+    hop issued it (ids clamped), and the plainest hand-written gather of
+    the same rows, on the same cycled id sets (rows cold)."""
+    from repro_torch.kernels.row_gather import row_gather_cuda
+    parts = []
+    for op, name, col in (("beam_step", "pq_codes", 4),
+                          ("ef_decode", "ef_slots", 3)):
+        sets = parity.cold[op]
+        table = sets[0][0]
+        n, row_bytes = table.shape[0], table[0].numel() * table.element_size()
+        ids = [a[col].reshape(-1).clamp(0, n - 1) for a in sets]
+        check(bits_equal(torch, row_gather_cuda(table, ids[0]),
+                         table[ids[0]]), f"row_gather of {name} != index")
+        t_index = cuda_ms(torch, [lambda i=i: table[i] for i in ids])
+        t_hand = cuda_ms(torch, [lambda i=i: row_gather_cuda(table, i)
+                                 for i in ids])
+        nbytes = ids[0].numel() * (4 + 2 * row_bytes)
+        vec = 16 if row_bytes % 16 == 0 else 4
+        parts.append(
+            f"{name}[ids] ({ids[0].numel()} rows of {row_bytes} B): torch "
+            f"index {t_index:.4f} ms, hand-written {vec}-byte-load gather "
+            f"{t_hand:.4f} ms, bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms"
+            f" ({nbytes / 1e6:.1f} MB)")
+    log(f"absorbed gathers (no longer issued by the fused hop; each timed "
+        f"cycling {Parity.COLD_SETS} fresh id sets, rows cold): "
+        + "; ".join(parts))
+
+
+def beam_step_regimes(torch, parity) -> None:
+    """beam_step's time by how many new ids survive the filter (beat the
+    candidate half's last entry): none read (the LUTs and the fixed
+    costs), the search's steady state, and the timed set of the report."""
+    from repro_torch.kernels.pq_adc.pq_adc import pq_adc_batched_ref
+    kern = parity.ops["beam_step"][0]
+    parts = []
+    for name, sets in parity.beam_regimes.items():
+        pq_codes, luts, _, cand_d, new_ids = sets[0]
+        d = pq_adc_batched_ref(pq_codes[new_ids.clamp(0, len(pq_codes) - 1)],
+                               luts)
+        live = (new_ids >= 0) & (d < cand_d[:, -1:])
+        t = cuda_ms(torch, [lambda a=a: kern(*a) for a in sets])
+        parts.append(f"{name} (~{float(live.sum(1).float().mean()):.1f} "
+                     f"survivors a query) {t:.4f} ms")
+    log(f"beam_step by survivors (rows cold, cycling "
+        f"{Parity.COLD_SETS} id sets): " + "; ".join(parts))
+
+
+def time_kernels(torch, parity) -> dict:
+    """Per-kernel device times on the shard's inputs, taken before the
+    storage phase; then the parity inputs, which hold the shard's tables,
+    are let go."""
+    absorbed_gathers(torch, parity)
+    beam_step_regimes(torch, parity)
+    times = {}
     for op, args in parity.shard_in.items():
         kern, plain = parity.ops[op]
-        ms = cuda_ms(torch, lambda: kern(*args))
-        plain_ms = cuda_ms(torch, lambda: plain(*args), reps=5)
+        sets = parity.cold.get(op, [args])
         lib = library_call(torch, op, args)
-        lib_ms = None if lib is None else cuda_ms(torch, lib)
-        nbytes, ops = bounds(torch, op, args)
+        times[op] = dict(
+            ms=cuda_ms(torch, [lambda a=a: kern(*a) for a in sets]),
+            plain_ms=cuda_ms(torch, [lambda a=a: plain(*a) for a in sets],
+                             reps=5),
+            library_ms=None if lib is None else cuda_ms(torch, lib),
+            cost=bounds(torch, op, args), sets=len(sets),
+            shapes=[tuple(a.shape) for a in args if hasattr(a, "shape")])
+    parity.shard_in = parity.cold = parity.beam_regimes = None
+    return times
+
+
+def report(parity, launches, times):
+    kernels = []
+    for op, t in times.items():
+        nbytes, ops = t["cost"]
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / FP32_OPS_PER_S * 1e3
         n_launch = launches[op]
         check(n_launch > 0, f"{op} has no launches on its path")
-        shapes = [tuple(a.shape) for a in args if hasattr(a, "shape")]
         kernels.append({
             "name": op, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{op}.cu",
             "replaces": REPLACES[op], "launches": n_launch,
-            "max_abs_err": parity.err[op], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
+            "max_abs_err": parity.err[op], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": lib_ms})
-        log(f"time {op} {shapes}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-            f"ms, library {lib_ms if lib_ms is None else round(lib_ms, 4)} "
+            "library_ms": t["library_ms"]})
+        lib_ms = t["library_ms"]
+        cold = (f" (cycling {t['sets']} fresh id sets, rows cold)"
+                if t["sets"] > 1 else "")
+        log(f"time {op} {t['shapes']}: kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms{cold}, library "
+            f"{lib_ms if lib_ms is None else round(lib_ms, 4)} "
             f"ms, bound {max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB, "
             f"{ops / 1e9:.3f} GFLOP); launches {n_launch}; parity cases "
             f"{parity.cases[op]} bit-exact")

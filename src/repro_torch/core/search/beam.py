@@ -116,16 +116,16 @@ def _gather_neighbors(index: DeviceIndex, sel_ids: torch.Tensor,
     """[nq, W] vertex ids -> [nq, W * r_max] neighbour ids (-1 = invalid)."""
     nq = sel_ids.shape[0]
     valid_sel = sel_ids >= 0
-    safe = sel_ids.clamp(0, n - 1)
     if p.use_ef:
         universe = p.universe or n
-        vals, cnts = dispatch.ef_decode(index.ef_slots[safe.reshape(-1)],
-                                        p.r_max, universe, p.kernels)
+        # the kernel reads each slot by id, clipped to the table
+        vals, cnts = dispatch.ef_decode(index.ef_slots, p.r_max, universe,
+                                        p.kernels, ids=sel_ids.reshape(-1))
         j = torch.arange(p.r_max, device=vals.device)
         nbrs = torch.where(j[None, :] < cnts[:, None], vals, -1)
-        nbrs = nbrs.reshape(safe.shape + (p.r_max,))
+        nbrs = nbrs.reshape(sel_ids.shape + (p.r_max,))
     else:
-        nbrs = index.neighbors[safe]
+        nbrs = index.neighbors[sel_ids.clamp(0, n - 1)]
     nbrs = torch.where(valid_sel[..., None], nbrs, -1)
     return nbrs.reshape(nq, -1)
 
@@ -250,14 +250,15 @@ def traverse(index: DeviceIndex, luts: torch.Tensor, p: SearchParams):
             visited.scatter_(1, torch.where(ok, uniq, n).long(),
                              torch.ones_like(ok))
         new_ids = torch.where(ok, uniq, -1)
-        codes = index.pq_codes[new_ids.clamp(0, n - 1)]
         pq_ct += ok.sum(1, dtype=torch.int32)
 
         if p.kernels.beam_step != "off":
+            # the fused hop reads the code rows of new_ids itself
             cand_ids, cand_d, top_i = dispatch.beam_step(
-                codes, luts, cand_ids, cand_d, new_ids, p.kernels)
+                index.pq_codes, luts, cand_ids, cand_d, new_ids, p.kernels)
             top_i = top_i.long()
         else:
+            codes = index.pq_codes[new_ids.clamp(0, n - 1)]
             new_d = torch.where(
                 ok, dispatch.pq_adc_batched(codes, luts, p.kernels),
                 torch.inf)

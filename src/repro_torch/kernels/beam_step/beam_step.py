@@ -1,6 +1,6 @@
 """Fused beam step: the hop's ADC + top-L merge of the candidate list.
 
-    codes    [nq, E, M] uint8   PQ codes gathered for this hop's E neighbours
+    pq_codes [n, M]     uint8   the shard's PQ codes (read by id)
     luts     [nq, M, K] f32     per-query ADC lookup tables
     cand_ids [nq, L]    i32     current candidate list (-1 = empty slot)
     cand_d   [nq, L]    f32     current candidate PQ distances (+inf = empty)
@@ -8,13 +8,14 @@
     -> (cand_ids' [nq, L], cand_d' [nq, L], top_idx [nq, L])
 
 the L smallest of ``[cand | new]`` by (distance, merged index), with
-``top_idx`` indexing that concatenation. ``beam_step_cuda`` launches
-``csrc/beam_step.cu`` (the port of
-``repro/kernels/beam_step/beam_step.py::beam_step_pallas``);
-``beam_step_ref`` is its plain PyTorch version, op for op the unfused hot
-sequence of ``core/search/beam.py``. ``lax.top_k`` puts the lower index
-first on ties and ``torch.topk`` does not, so every top-k here is a stable
-ascending sort (``stable_smallest``).
+``top_idx`` indexing that concatenation: the reference's ``beam_step`` on
+``codes = pq_codes[clip(new_ids, 0, n - 1)]``. A masked entry scores +inf.
+``beam_step_cuda`` launches ``csrc/beam_step.cu`` (the port of
+``repro/kernels/beam_step/beam_step.py::beam_step_pallas``), which reads
+each row of ``pq_codes`` itself; ``beam_step_ref`` is its plain PyTorch
+version, op for op the unfused hot sequence of ``core/search/beam.py``.
+``lax.top_k`` puts the lower index first on ties and ``torch.topk`` does
+not, so every top-k here is a stable ascending sort (``stable_smallest``).
 """
 import torch
 
@@ -30,8 +31,9 @@ def stable_smallest(x: torch.Tensor, k: int):
     return vals[..., :k].contiguous(), idx[..., :k].contiguous()
 
 
-def beam_step_ref(codes, luts, cand_ids, cand_d, new_ids):
+def beam_step_ref(pq_codes, luts, cand_ids, cand_d, new_ids):
     l_size = cand_ids.shape[1]
+    codes = pq_codes[new_ids.clamp(0, pq_codes.shape[0] - 1)]
     d = pq_adc_batched_ref(codes, luts)
     new_d = torch.where(new_ids >= 0, d, torch.inf)
     merged_ids = torch.cat([cand_ids, new_ids], 1)
@@ -41,22 +43,23 @@ def beam_step_ref(codes, luts, cand_ids, cand_d, new_ids):
             top_i.to(torch.int32))
 
 
-def beam_step_cuda(codes, luts, cand_ids, cand_d, new_ids):
-    nq, e, m = codes.shape
+def beam_step_cuda(pq_codes, luts, cand_ids, cand_d, new_ids):
+    n, m = pq_codes.shape
+    nq, e = new_ids.shape
     l_size = cand_ids.shape[1]
-    if (codes.dtype != torch.uint8 or luts.dtype != torch.float32
+    if (pq_codes.dtype != torch.uint8 or luts.dtype != torch.float32
             or cand_ids.dtype != torch.int32 or new_ids.dtype != torch.int32
             or cand_d.dtype != torch.float32):
         raise TypeError("beam_step takes uint8 codes, float32 LUTs and "
                         "distances, int32 ids")
     if (luts.shape[:2] != (nq, m) or cand_d.shape != (nq, l_size)
-            or cand_ids.shape != (nq, l_size) or new_ids.shape != (nq, e)):
+            or cand_ids.shape != (nq, l_size) or n == 0):
         raise ValueError("beam_step input shapes disagree")
-    dev = check_cuda(codes, luts, cand_ids, cand_d, new_ids)
+    dev = check_cuda(pq_codes, luts, cand_ids, cand_d, new_ids)
     ids = torch.empty((nq, l_size), dtype=torch.int32, device=dev)
     d = torch.empty((nq, l_size), dtype=torch.float32, device=dev)
     idx = torch.empty((nq, l_size), dtype=torch.int32, device=dev)
     if nq * l_size:
-        launch("beam_step", "beam_step", codes, luts, cand_ids, cand_d,
-               new_ids, ids, d, idx, nq, e, l_size, m, luts.shape[2])
+        launch("beam_step", "beam_step", pq_codes, luts, cand_ids, cand_d,
+               new_ids, ids, d, idx, n, nq, e, l_size, m, luts.shape[2])
     return ids, d, idx

@@ -28,7 +28,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("pq_adc_batched", "ef_decode", "beam_step", "rerank_l2",
-           "pq_encode", "byteplane", "pq_adc")
+           "pq_encode", "byteplane", "pq_adc", "row_gather")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -111,10 +111,12 @@ def _entry(name: str, entry: str, pointers: tuple[bool, ...]):
 
 def launch(name: str, entry: str, *args) -> None:
     """Call C entry ``entry`` of kernel library ``name`` with ``args``
-    (tensors pass their data pointer, ints pass as C ``long long``) on the
-    current stream; raise on a CUDA error; count the launch."""
-    pointers = tuple(isinstance(a, torch.Tensor) for a in args)
-    cargs = [a.data_ptr() if p else int(a) for a, p in zip(args, pointers)]
+    (tensors pass their data pointer, ``None`` a null pointer, ints pass as
+    C ``long long``) on the current stream; raise on a CUDA error; count
+    the launch."""
+    pointers = tuple(a is None or isinstance(a, torch.Tensor) for a in args)
+    cargs = [None if a is None else a.data_ptr() if p else int(a)
+             for a, p in zip(args, pointers)]
     rc = _entry(name, entry, pointers)(
         *cargs, torch.cuda.current_stream().cuda_stream)
     if rc:

@@ -4,27 +4,51 @@
 // (_kernel), which scored neighbours by a one-hot x LUT matmul on the MXU
 // and selected the top-L with a [T, T] stable-rank compare.
 //
-//   codes [nq, E, M] uint8, luts [nq, M, K] f32, cand_ids [nq, L] i32,
+//   pq_codes [n, M] uint8, luts [nq, M, K] f32, cand_ids [nq, L] i32,
 //   cand_d [nq, L] f32, new_ids [nq, E] i32 (-1 = masked)
 //   -> ids [nq, L] i32, d [nq, L] f32, top_idx [nq, L] i32
-//   d_new[e] = ADC of codes[e] (m folded in order), +inf where new_ids < 0;
-//   merged = [cand | new] (T = L + E); output = the L smallest merged
-//   entries by (distance, merged index) — lax.top_k's tie-break.
+//   d_new[e] = ADC of pq_codes[min(new_ids[e], n - 1)] (m folded in order),
+//   +inf where new_ids < 0 (no row read); merged = [cand | new]
+//   (T = L + E); output = the L smallest merged entries by (distance,
+//   merged index) — lax.top_k's tie-break.
 //
-// Bound: bytes (the LUTs, 32 KiB a query, and the codes dominate: ~56.5 MB
-// per hop at nq=1024, E=512, M=32, L=200). Design: one block per query.
-// The block stages the query's LUT in shared memory and scores the E
-// neighbours by gather, folding m in order with __fadd_rn (bit-identical to
-// the plain version). Each merged entry becomes a 64-bit key: the
-// order-preserving bits of its distance (-0 folded onto +0) above its
-// merged index, so keys are distinct and their ascending order is
-// (distance, index) order. A bitonic sort of the next power of two >= T
-// keys in shared memory then yields the top L. At T = 712 the block holds
-// 32 KiB of LUT + 12 KiB of keys and distances.
+// Bound: bytes — the LUTs (32 KiB a query) and the valid rows of the
+// table: ~50 MB per hop at nq=1024, E=512 (60% valid), M=32, L=200. Design: one block
+// per query.
+// - Overlapped loads. One thread starts a bulk copy (cp.async.bulk, the
+//   TMA's non-tensor form) of the query's LUT into shared memory, its
+//   completion counted on an mbarrier. Meanwhile every thread reads its
+//   new_ids and issues the loads of its rows of pq_codes into registers
+//   (two 16-byte loads for a 32-byte row; narrower loads when M or the
+//   table's address does not allow them; rows wider than 32 bytes are read
+//   byte by byte in the fold). It then waits on the barrier and folds m in
+//   order with __fadd_rn, bit-identical to the plain version.
+// - Top-L by filter and merge. Every merged entry has a 64-bit key: the
+//   order-preserving bits of its distance (-0 folded onto +0) above its
+//   merged index, so keys are distinct and ascend in (distance, index)
+//   order. A new key can enter the top L only if it is smaller than the
+//   key of candidate L-1 (the L candidate keys beat every larger one), so
+//   the block keeps only those, compacts them with a warp ballot and a
+//   prefix over the warps, bitonic-sorts the survivors (a power of two >=
+//   their count) and merges them with the candidate half: each entry's
+//   output position is its index in its own run plus its rank in the
+//   other (a binary search).
+// - Any input. The search always passes a candidate half sorted by
+//   (distance, index) — the previous hop's output or the [e_d, inf, ...]
+//   start — but a caller may not: a vote over adjacent pairs finds an
+//   unsorted half, which is then sorted in shared memory first.
+// Shared memory at the shard's shapes: 32 KiB LUT + 256 candidate and 512
+// survivor keys + 512 distances, ~41 KB a block.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kRows = 2;       // rows a thread holds in registers per group
+constexpr int kRowBytes = 32;  // widest row kept in registers
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ unsigned long long sort_key(float d, unsigned t) {
   unsigned u = __float_as_uint(d);
@@ -33,47 +57,68 @@ __device__ __forceinline__ unsigned long long sort_key(float d, unsigned t) {
   return ((unsigned long long)u << 32) | t;
 }
 
-__global__ void beam_step_kernel(const uint8_t* __restrict__ codes,
-                                 const float* __restrict__ luts,
-                                 const int32_t* __restrict__ cand_ids,
-                                 const float* __restrict__ cand_d,
-                                 const int32_t* __restrict__ new_ids,
-                                 int32_t* __restrict__ out_ids,
-                                 float* __restrict__ out_d,
-                                 int32_t* __restrict__ out_idx, int e,
-                                 int l_size, int m, int k, int tpad,
-                                 int key_offset) {
-  extern __shared__ unsigned char smem[];
-  float* lut = (float*)smem;
-  unsigned long long* keys = (unsigned long long*)(smem + key_offset);
-  float* md = (float*)(keys + tpad);
-  const long long q = blockIdx.x;
-  const int t_real = l_size + e;
-  const float* lq = luts + q * m * k;
-  for (int i = threadIdx.x; i < m * k; i += blockDim.x) lut[i] = lq[i];
-  __syncthreads();
-  for (int t = threadIdx.x; t < tpad; t += blockDim.x) {
-    if (t >= t_real) {
-      keys[t] = ~0ull;
-      continue;
-    }
-    float d;
-    if (t < l_size) {
-      d = cand_d[q * l_size + t];
-    } else if (new_ids[q * e + (t - l_size)] < 0) {
-      d = __int_as_float(0x7f800000);
-    } else {
-      const uint8_t* c = codes + (q * e + (t - l_size)) * m;
-      d = lut[c[0]];
-      for (int j = 1; j < m; ++j) d = __fadd_rn(d, lut[j * k + c[j]]);
-    }
-    md[t] = d;
-    keys[t] = sort_key(d, (unsigned)t);
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// Row `id` of the table into w[0..8) (bytes little-endian), VEC bytes a
+// load; VEC == 0 keeps nothing (rows wider than kRowBytes).
+template <int VEC>
+__device__ __forceinline__ void load_row(const uint8_t* __restrict__ table,
+                                         long long id, int m, uint32_t* w) {
+  const uint8_t* src = table + id * m;
+  if (VEC == 16) {
+#pragma unroll
+    for (int j = 0; j < kRowBytes / 16; ++j)
+      if (j * 16 < m) {
+        const uint4 v = __ldg((const uint4*)src + j);
+        w[4 * j] = v.x; w[4 * j + 1] = v.y;
+        w[4 * j + 2] = v.z; w[4 * j + 3] = v.w;
+      }
+  } else if (VEC == 8) {
+#pragma unroll
+    for (int j = 0; j < kRowBytes / 8; ++j)
+      if (j * 8 < m) {
+        const uint2 v = __ldg((const uint2*)src + j);
+        w[2 * j] = v.x; w[2 * j + 1] = v.y;
+      }
+  } else if (VEC == 4) {
+#pragma unroll
+    for (int j = 0; j < kRowBytes / 4; ++j)
+      if (j * 4 < m) w[j] = __ldg((const uint32_t*)src + j);
+  } else if (VEC == 1) {
+#pragma unroll
+    for (int j = 0; j < kRowBytes / 4; ++j) w[j] = 0u;
+#pragma unroll
+    for (int j = 0; j < kRowBytes; ++j)
+      if (j < m) w[j >> 2] |= (uint32_t)__ldg(src + j) << (8 * (j & 3));
   }
-  __syncthreads();
-  for (int size = 2; size <= tpad; size <<= 1) {
+}
+
+// ADC of one row, m folded in order (lut in shared memory, [m, k]).
+template <int VEC>
+__device__ __forceinline__ float fold_row(const float* lut, const uint32_t* w,
+                                          const uint8_t* __restrict__ table,
+                                          long long id, int m, int k) {
+  if (VEC == 0) {
+    const uint8_t* c = table + id * m;
+    float d = lut[__ldg(c)];
+    for (int j = 1; j < m; ++j) d = __fadd_rn(d, lut[j * k + __ldg(c + j)]);
+    return d;
+  }
+  float d = lut[w[0] & 0xffu];
+#pragma unroll
+  for (int j = 1; j < kRowBytes; ++j)
+    if (j < m) d = __fadd_rn(d, lut[j * k + ((w[j >> 2] >> (8 * (j & 3)))
+                                             & 0xffu)]);
+  return d;
+}
+
+// Ascending bitonic sort of keys[0..p), p a power of two; ends synced.
+__device__ void bitonic(unsigned long long* keys, int p) {
+  for (int size = 2; size <= p; size <<= 1) {
     for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int i = threadIdx.x; i < (tpad >> 1); i += blockDim.x) {
+      for (int i = threadIdx.x; i < (p >> 1); i += blockDim.x) {
         const int lo = 2 * i - (i & (stride - 1));
         const int hi = lo + stride;
         const unsigned long long a = keys[lo], b = keys[hi];
@@ -85,40 +130,227 @@ __global__ void beam_step_kernel(const uint8_t* __restrict__ codes,
       __syncthreads();
     }
   }
-  for (int p = threadIdx.x; p < l_size; p += blockDim.x) {
-    const int t = (int)(keys[p] & 0xffffffffull);
-    out_idx[q * l_size + p] = t;
-    out_d[q * l_size + p] = md[t];
-    out_ids[q * l_size + p] =
-        t < l_size ? cand_ids[q * l_size + t] : new_ids[q * e + (t - l_size)];
+}
+
+// Entries of sorted keys[0..len) smaller than x.
+__device__ __forceinline__ int rank_in(const unsigned long long* keys,
+                                       int len, unsigned long long x) {
+  int lo = 0, hi = len;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (keys[mid] < x) lo = mid + 1; else hi = mid;
   }
+  return lo;
+}
+
+template <int VEC>
+__global__ void __launch_bounds__(kThreads)
+beam_step_kernel(const uint8_t* __restrict__ table, long long n,
+                 const float* __restrict__ luts,
+                 const int32_t* __restrict__ cand_ids,
+                 const float* __restrict__ cand_d,
+                 const int32_t* __restrict__ new_ids,
+                 int32_t* __restrict__ out_ids, float* __restrict__ out_d,
+                 int32_t* __restrict__ out_idx, int e, int l_size, int m,
+                 int k, int lpad, int bulk, int off_bar, int off_ckeys,
+                 int off_skeys, int off_dnew) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* lut = (float*)smem;
+  unsigned long long* bar = (unsigned long long*)(smem + off_bar);
+  unsigned* wcnt = (unsigned*)(smem + off_bar + 16);
+  unsigned long long* ckeys = (unsigned long long*)(smem + off_ckeys);
+  unsigned long long* skeys = (unsigned long long*)(smem + off_skeys);
+  float* dnew = (float*)(smem + off_dnew);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long q = blockIdx.x;
+  const float* lq = luts + q * m * k;
+  const float* cd = cand_d + q * l_size;
+  const int32_t* nid = new_ids + q * e;
+  const unsigned lut_bytes = (unsigned)(m * k * sizeof(float));
+
+  if (bulk) {
+    if (tid == 0) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+                   :: "r"(smem_addr(bar)) : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    if (tid == 0) {
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                   :: "r"(smem_addr(bar)), "r"(lut_bytes) : "memory");
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+          " [%0], [%1], %2, [%3];\n"
+          :: "r"(smem_addr(lut)), "l"(lq), "r"(lut_bytes),
+             "r"(smem_addr(bar)) : "memory");
+    }
+  }
+
+  // Group 0's rows go out first: their loads fly while the LUT arrives.
+  const int group = kRows * kThreads;
+  int rid[kRows];
+  uint32_t w[kRows][kRowBytes / 4];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int x = r * kThreads + tid;
+    rid[r] = x < e ? nid[x] : -1;
+    if (rid[r] >= 0)
+      load_row<VEC>(table, rid[r] < n ? rid[r] : n - 1, m, w[r]);
+  }
+
+  // Candidate keys; does the half ascend?
+  int unsorted = 0;
+  for (int i = tid; i < lpad; i += kThreads) {
+    if (i < l_size) {
+      const unsigned long long ki = sort_key(cd[i], (unsigned)i);
+      ckeys[i] = ki;
+      if (i + 1 < l_size && ki > sort_key(cd[i + 1], (unsigned)(i + 1)))
+        unsorted = 1;
+    } else {
+      ckeys[i] = ~0ull;
+    }
+  }
+  if (!bulk)
+    for (int i = tid; i < m * k; i += kThreads) lut[i] = lq[i];
+  if (__syncthreads_or(unsorted)) bitonic(ckeys, lpad);
+  const unsigned long long thr = ckeys[l_size - 1];
+  if (bulk) {
+    unsigned done = 0;
+    for (long long spin = 0; !done; ++spin) {
+      if (spin == (1ll << 24)) __trap();  // a copy that never lands faults
+      asm volatile(
+          "{\n .reg .pred p;\n"
+          " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+          " selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done) : "r"(smem_addr(bar)) : "memory");
+    }
+  }
+
+  // Score, filter and compact, one group of kRows * kThreads rows a pass.
+  int kept = 0;  // survivors so far, the same in every thread
+  for (int g0 = 0; g0 < e; g0 += group) {
+    if (g0) {
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const int x = g0 + r * kThreads + tid;
+        rid[r] = x < e ? nid[x] : -1;
+        if (rid[r] >= 0)
+          load_row<VEC>(table, rid[r] < n ? rid[r] : n - 1, m, w[r]);
+      }
+    }
+    unsigned long long key[kRows];
+    unsigned ballot[kRows];
+    unsigned mine = 0;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int x = g0 + r * kThreads + tid;
+      bool pass = false;
+      if (x < e) {
+        const float d = rid[r] >= 0
+            ? fold_row<VEC>(lut, w[r], table, rid[r] < n ? rid[r] : n - 1, m,
+                            k)
+            : __int_as_float(0x7f800000);
+        dnew[x] = d;
+        key[r] = sort_key(d, (unsigned)(l_size + x));
+        pass = key[r] < thr;
+      }
+      ballot[r] = __ballot_sync(kFull, pass);
+      mine += __popc(ballot[r]);
+    }
+    if (lane == 0) wcnt[warp] = mine;
+    __syncthreads();
+    int base = kept, total = 0;
+    for (int i = 0; i < kWarps; ++i) {
+      const int c = (int)wcnt[i];
+      if (i < warp) base += c;
+      total += c;
+    }
+    const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      if (ballot[r] & (1u << lane))
+        skeys[base + __popc(ballot[r] & below)] = key[r];
+      base += __popc(ballot[r]);
+    }
+    kept += total;
+    __syncthreads();  // wcnt is rewritten by the next group
+  }
+
+  // Sort the survivors, then merge them with the candidate half by rank.
+  int spad = 1;
+  while (spad < kept) spad <<= 1;
+  for (int i = kept + tid; i < spad; i += kThreads) skeys[i] = ~0ull;
+  __syncthreads();
+  if (spad > 1) bitonic(skeys, spad);
+  const int take = kept < l_size ? kept : l_size;
+  for (int i = tid; i < l_size + take; i += kThreads) {
+    const bool cand = i < l_size;
+    const unsigned long long key = cand ? ckeys[i] : skeys[i - l_size];
+    const int pos = cand ? i + rank_in(skeys, kept, key)
+                         : (i - l_size) + rank_in(ckeys, l_size, key);
+    if (pos >= l_size) continue;
+    const int t = (int)(key & 0xffffffffull);
+    const long long o = q * l_size + pos;
+    out_idx[o] = t;
+    if (t < l_size) {
+      out_d[o] = cd[t];
+      out_ids[o] = cand_ids[q * l_size + t];
+    } else {
+      out_d[o] = dnew[t - l_size];
+      out_ids[o] = nid[t - l_size];
+    }
+  }
+}
+
+struct Args {
+  const void *table, *luts, *cand_ids, *cand_d, *new_ids;
+  void *out_ids, *out_d, *out_idx;
+  long long n, nq, e, l_size, m, k;
+  cudaStream_t stream;
+};
+
+template <int VEC>
+int launch_vec(const Args& a) {
+  int lpad = 1;
+  while (lpad < a.l_size) lpad <<= 1;
+  int epad = 1;
+  while (epad < a.e) epad <<= 1;
+  const size_t lut_bytes = (size_t)a.m * a.k * sizeof(float);
+  const int bulk = ((uintptr_t)a.luts % 16 == 0) && (lut_bytes % 16 == 0);
+  const size_t off_bar = (lut_bytes + 15) & ~(size_t)15;
+  const size_t off_ckeys = off_bar + 16 + kWarps * sizeof(unsigned);
+  const size_t off_skeys = off_ckeys + lpad * sizeof(unsigned long long);
+  const size_t off_dnew = off_skeys + epad * sizeof(unsigned long long);
+  const size_t smem = off_dnew + (a.e ? a.e : 1) * sizeof(float);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        beam_step_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  beam_step_kernel<VEC><<<(unsigned)a.nq, kThreads, smem, a.stream>>>(
+      (const uint8_t*)a.table, a.n, (const float*)a.luts,
+      (const int32_t*)a.cand_ids, (const float*)a.cand_d,
+      (const int32_t*)a.new_ids, (int32_t*)a.out_ids, (float*)a.out_d,
+      (int32_t*)a.out_idx, (int)a.e, (int)a.l_size, (int)a.m, (int)a.k, lpad,
+      bulk, (int)off_bar, (int)off_ckeys, (int)off_skeys, (int)off_dnew);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int beam_step(const void* codes, const void* luts,
+extern "C" int beam_step(const void* table, const void* luts,
                          const void* cand_ids, const void* cand_d,
                          const void* new_ids, void* out_ids, void* out_d,
-                         void* out_idx, long long nq, long long e,
-                         long long l_size, long long m, long long k,
-                         void* stream) {
-  int tpad = 1;
-  while (tpad < l_size + e) tpad <<= 1;
-  const int key_offset = (int)(((size_t)m * k * sizeof(float) + 7) & ~7ull);
-  const size_t smem = key_offset + (size_t)tpad * (sizeof(unsigned long long)
-                                                   + sizeof(float));
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        beam_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  int threads = tpad / 2;
-  threads = threads < 32 ? 32 : (threads > 512 ? 512 : threads);
-  beam_step_kernel<<<(unsigned)nq, threads, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)codes, (const float*)luts, (const int32_t*)cand_ids,
-      (const float*)cand_d, (const int32_t*)new_ids, (int32_t*)out_ids,
-      (float*)out_d, (int32_t*)out_idx, (int)e, (int)l_size, (int)m, (int)k,
-      tpad, key_offset);
-  return (int)cudaGetLastError();
+                         void* out_idx, long long n, long long nq,
+                         long long e, long long l_size, long long m,
+                         long long k, void* stream) {
+  const Args a{table, luts, cand_ids, cand_d, new_ids, out_ids, out_d,
+               out_idx, n, nq, e, l_size, m, k, (cudaStream_t)stream};
+  const uintptr_t at = (uintptr_t)table;
+  if (m > kRowBytes) return launch_vec<0>(a);
+  if (m % 16 == 0 && at % 16 == 0) return launch_vec<16>(a);
+  if (m % 8 == 0 && at % 8 == 0) return launch_vec<8>(a);
+  if (m % 4 == 0 && at % 4 == 0) return launch_vec<4>(a);
+  return launch_vec<1>(a);
 }

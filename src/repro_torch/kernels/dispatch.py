@@ -127,11 +127,13 @@ def pq_adc_batched(codes, luts, cfg: KernelConfig | None = None):
 
 
 def ef_decode(slots, r_max: int, universe: int,
-              cfg: KernelConfig | None = None):
-    """[B, W] int32 (uint32 bit-view) slots -> (neighbors [B, r_max],
-    counts [B])."""
+              cfg: KernelConfig | None = None, ids=None):
+    """[N, W] int32 (uint32 bit-view) slots, rows ``ids`` [B] int32
+    (clipped to the table; every row without ids) -> (neighbors
+    [B, r_max], counts [B])."""
     cfg = cfg or KernelConfig()
-    return _impl("ef_decode", cfg.ef_decode, slots)(slots, r_max, universe)
+    return _impl("ef_decode", cfg.ef_decode, slots)(slots, r_max, universe,
+                                                    ids)
 
 
 def rerank_l2(queries, cands, cfg: KernelConfig | None = None):
@@ -146,13 +148,14 @@ def byteplane_decode(packed, base, cfg: KernelConfig | None = None):
     return _impl("byteplane", cfg.byteplane, packed)(packed, base)
 
 
-def beam_step(codes, luts, cand_ids, cand_d, new_ids,
+def beam_step(pq_codes, luts, cand_ids, cand_d, new_ids,
               cfg: KernelConfig | None = None):
-    """Fused hop tail: [nq, E, M] codes x [nq, M, K] LUTs merged into the
-    [nq, L] candidate list -> (cand_ids', cand_d', top_idx)."""
+    """Fused hop tail: the [n, M] code rows of ``new_ids`` [nq, E] scored
+    against [nq, M, K] LUTs and merged into the [nq, L] candidate list ->
+    (cand_ids', cand_d', top_idx)."""
     cfg = cfg or KernelConfig()
-    return _impl("beam_step", cfg.beam_step, codes)(
-        codes, luts, cand_ids, cand_d, new_ids)
+    return _impl("beam_step", cfg.beam_step, pq_codes)(
+        pq_codes, luts, cand_ids, cand_d, new_ids)
 
 
 def pq_encode(vectors, centroids):

@@ -75,19 +75,38 @@ def ef_slots(r_max, universe, seed):
     return np.stack([encode_slot(v, r_max, universe) for v in truth]), truth
 
 
-def beam_case(nq, e, l_size, m, seed, mask_p=0.85, ties=False):
+def beam_case(nq, e, l_size, m, seed, mask_p=0.85, ties=False,
+              cands="sorted", ids="random"):
+    """(pq_codes [n, M], luts, cand_ids, cand_d, new_ids) of one hop.
+
+    ``cands``: "sorted" by distance (what the search passes), "unsorted",
+    or "first-hop" (one finite candidate, L-1 empty at +inf). ``ids``:
+    "random" rows of the table, "edges" (0, n-1 and ids past the end,
+    which clip to n-1), or "repeated" (a few rows, each many times)."""
     rng = np.random.default_rng(seed)
-    codes = rng.integers(0, 256, (nq, e, m), dtype=np.uint8)
+    n = 3 * e + 5
+    pq_codes = rng.integers(0, 256, (n, m), dtype=np.uint8)
     luts = rng.normal(size=(nq, m, 256)).astype(np.float32)
     if ties:   # quantize hard so merged distances collide constantly
         luts = np.round(luts)
-    cand_d = np.sort(rng.normal(size=(nq, l_size)).astype(np.float32) ** 2, 1)
+    cand_d = rng.normal(size=(nq, l_size)).astype(np.float32) ** 2
     if ties:
         cand_d = np.round(cand_d * 2) / 2
+    if cands != "unsorted":
+        cand_d = np.sort(cand_d, 1)
     cand_ids = rng.integers(0, 10**6, (nq, l_size)).astype(np.int32)
-    new_ids = np.where(rng.random((nq, e)) < mask_p,
-                       rng.integers(0, 10**6, (nq, e)), -1).astype(np.int32)
-    return codes, luts, cand_ids, cand_d, new_ids
+    if cands == "first-hop":
+        cand_d[:, 1:] = np.inf
+        cand_ids[:, 1:] = -1
+    if ids == "edges":
+        rows = rng.choice(np.array([0, n - 1, n, n + 7, 1]), (nq, e))
+    elif ids == "repeated":
+        rows = rng.integers(0, 3, (nq, e))
+    else:
+        rows = rng.integers(0, n, (nq, e))
+    new_ids = np.where(rng.random((nq, e)) < mask_p, rows, -1
+                       ).astype(np.int32)
+    return pq_codes, luts, cand_ids, cand_d, new_ids
 
 
 BEAM_CASES = {
@@ -99,7 +118,26 @@ BEAM_CASES = {
     "shard-hop": dict(nq=16, e=512, l_size=200, m=32, seed=6),
     "ties": dict(nq=4, e=40, l_size=16, m=4, seed=7, ties=True),
     "all-masked": dict(nq=3, e=12, l_size=8, m=8, seed=11, mask_p=0.0),
+    "unsorted-cands": dict(nq=5, e=64, l_size=32, m=8, seed=12,
+                           cands="unsorted"),
+    "unsorted-ties": dict(nq=3, e=40, l_size=20, m=4, seed=13, ties=True,
+                          cands="unsorted"),
+    "first-hop": dict(nq=4, e=96, l_size=48, m=8, seed=14,
+                      cands="first-hop"),
+    "shard-first-hop": dict(nq=2, e=512, l_size=200, m=32, seed=15,
+                            cands="first-hop"),
+    "id-edges": dict(nq=3, e=40, l_size=16, m=16, seed=16, ids="edges"),
+    "repeated-ids": dict(nq=4, e=50, l_size=20, m=4, seed=17,
+                         ids="repeated"),
+    "odd-width": dict(nq=3, e=30, l_size=12, m=3, seed=18),
 }
+
+
+def ef_ids(n_slots):
+    """Row ids into a table of ``n_slots`` slots: both edges, repeats, and
+    ids past either end (they clip)."""
+    return np.array([n_slots - 1, 0, 2, 2, 3, 1, 4, 0, n_slots - 1, -3,
+                     n_slots + 93, 1], dtype=np.int32)
 
 
 def _bits(x):
@@ -130,6 +168,32 @@ def test_beam_step_kernel(cuda, case):
     args = _on(cuda, *beam_case(**BEAM_CASES[case]))
     for got, want in zip(beam_step_cuda(*args), beam_step_ref(*args)):
         assert_bits_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [33, 48])
+def test_beam_step_kernel_wide_rows(cuda, m):
+    """Rows wider than 32 bytes are folded straight from the table (no
+    reference case: jnp's sum is a left fold only up to M = 32)."""
+    args = _on(cuda, *beam_case(3, 20, 8, m, seed=m))
+    for got, want in zip(beam_step_cuda(*args), beam_step_ref(*args)):
+        assert_bits_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_ef_decode_kernel_reads_rows_by_id(cuda):
+    """Rows by id from the shard-sized layout (R=128, U=31.25M): each
+    equals the decode of its own slot, ids past either end clip."""
+    slots, _ = ef_slots(128, 31_250_000, seed=4)
+    (s,) = _on(cuda, slots.view(np.int32))
+    ids = torch.from_numpy(ef_ids(len(slots))).to(cuda)
+    got = ef_decode_cuda(s, 128, 31_250_000, ids)
+    whole = ef_decode_cuda(s, 128, 31_250_000)
+    rows = ids.long().clamp(0, len(slots) - 1)
+    for g, w, full in zip(got, ef_decode_ref(s, 128, 31_250_000, ids),
+                          whole):
+        assert_bits_equal(g, w)
+        assert_bits_equal(g, full[rows])
 
 
 @pytest.mark.cuda
@@ -215,6 +279,10 @@ def test_ef_decode_kernel(cuda, r_max, universe):
     got, want = ef_decode_cuda(s, r_max, universe), ef_decode_ref(
         s, r_max, universe)
     for g, w in zip(got, want):
+        assert_bits_equal(g, w)
+    ids = torch.from_numpy(ef_ids(len(slots))).to(cuda)
+    for g, w in zip(ef_decode_cuda(s, r_max, universe, ids),
+                    ef_decode_ref(s, r_max, universe, ids)):
         assert_bits_equal(g, w)
     for i, vals in enumerate(truth):
         np.testing.assert_array_equal(

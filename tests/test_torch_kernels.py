@@ -27,11 +27,13 @@ from repro.kernels.pq_adc.ref import pq_adc_ref as jpq_adc
 from repro.kernels.dispatch import KernelConfig as JKernelConfig
 
 from repro_torch.kernels import dispatch
-from repro_torch.kernels.beam_step.beam_step import beam_step_ref
+from repro_torch.kernels.beam_step.beam_step import (beam_step_cuda,
+                                                     beam_step_ref)
 from repro_torch.kernels.byteplane.byteplane import (byteplane_decode_cuda,
                                                      byteplane_decode_ref)
 from repro_torch.kernels.dispatch import KernelConfig, get_impl
-from repro_torch.kernels.ef_decode.ef_decode import ef_decode_ref
+from repro_torch.kernels.ef_decode.ef_decode import (ef_decode_cuda,
+                                                     ef_decode_ref)
 from repro_torch.kernels.pq_adc.pq_adc import (pq_adc_batched_cuda,
                                                pq_adc_batched_ref,
                                                pq_adc_cuda, pq_adc_ref)
@@ -41,7 +43,7 @@ from repro_torch.kernels.rerank_l2.rerank_l2 import (rerank_l2_cuda,
 
 from test_torch_cuda import (BEAM_CASES, BYTEPLANE_SHAPES, adc_case,
                              assert_bits_equal, beam_case, byteplane_case,
-                             ef_slots, single_adc_case)
+                             ef_ids, ef_slots, single_adc_case)
 
 JREF = JKernelConfig("ref", "ref", "ref", "ref", "ref")
 JPAL = JKernelConfig(*(["pallas-interpret"] * 5))
@@ -109,18 +111,49 @@ def test_byteplane_matches_reference(n, v):
                          [(8, 64), (16, 1000), (24, 1200), (24, 10**5),
                           (32, 10**6), (128, 31_250_000)])
 def test_ef_decode_matches_reference(r_max, universe):
+    """Every row in order (``ids=None``) and rows by id (both edges,
+    repeats, ids past either end) equal the reference on the table and on
+    ``slots[clip(ids)]``."""
     slots, truth = ef_slots(r_max, universe, seed=r_max)
     nb, ct = ef_decode_ref(T(slots.view(np.int32)), r_max, universe)
+    ids = ef_ids(len(slots))
+    nb_i, ct_i = ef_decode_ref(T(slots.view(np.int32)), r_max, universe,
+                               T(ids))
+    picked = slots[np.clip(ids, 0, len(slots) - 1)]
     for cfg in (JREF, JPAL):
         nb_j, ct_j = jdispatch.ef_decode(jnp.asarray(slots), r_max,
                                          universe, cfg)
         assert_bits_equal(nb, nb_j)
         assert_bits_equal(ct, ct_j)
+        nb_j, ct_j = jdispatch.ef_decode(jnp.asarray(picked), r_max,
+                                         universe, cfg)
+        assert_bits_equal(nb_i, nb_j)
+        assert_bits_equal(ct_i, ct_j)
     for i, vals in enumerate(truth):
         assert int(ct[i]) == len(vals)
         np.testing.assert_array_equal(nb[i, :len(vals)].numpy(),
                                       vals.astype(np.int64))
         assert (nb[i, len(vals):] == universe - 1).all()
+
+
+@pytest.mark.parametrize("ids", ["none", "edges", "repeated", "one",
+                                 "empty"])
+def test_ef_decode_by_id_through_dispatch(ids):
+    """dispatch.ef_decode on CPU tensors: rows by id == the reference's
+    decode of the clipped gather; no ids == every row in order."""
+    slots, _ = ef_slots(24, 1200, seed=5)
+    rows = {"none": None, "edges": ef_ids(len(slots)),
+            "repeated": np.array([3, 3, 3, 0, 0], dtype=np.int32),
+            "one": np.array([len(slots) - 1], dtype=np.int32),
+            "empty": np.zeros(0, dtype=np.int32)}[ids]
+    got = dispatch.ef_decode(T(slots.view(np.int32)), 24, 1200,
+                             ids=None if rows is None else T(rows))
+    picked = slots if rows is None else slots[np.clip(rows, 0,
+                                                      len(slots) - 1)]
+    want = jdispatch.ef_decode(jnp.asarray(picked), 24, 1200, JREF)
+    assert got[0].shape == (len(picked), 24)
+    for g, w in zip(got, want):
+        assert_bits_equal(g, w)
 
 
 def test_ef_decode_malformed_slots_match_reference():
@@ -138,13 +171,20 @@ def test_ef_decode_malformed_slots_match_reference():
 # --------------------------------------------------------------- beam_step
 @pytest.mark.parametrize("case", sorted(BEAM_CASES))
 def test_beam_step_matches_reference(case):
+    """The plain version reads the code rows of new_ids from the table:
+    it equals the reference's beam_step on ``pq_codes[clip(new_ids)]``."""
     args = beam_case(**BEAM_CASES[case])
+    pq_codes, new_ids = args[0], args[4]
+    gathered = (pq_codes[np.clip(new_ids, 0, len(pq_codes) - 1)],
+                *args[1:])
     ids, d, ix = beam_step_ref(*map(T, args))
-    ids_r, d_r, ix_r = jdispatch.beam_step(*map(jnp.asarray, args), JREF)
+    ids_r, d_r, ix_r = jdispatch.beam_step(*map(jnp.asarray, gathered),
+                                           JREF)
     assert_bits_equal(ids, ids_r)
     assert_bits_equal(ix, ix_r)
     assert_bits_equal(d, d_r)
-    ids_p, d_p, ix_p = jdispatch.beam_step(*map(jnp.asarray, args), JPAL)
+    ids_p, d_p, ix_p = jdispatch.beam_step(*map(jnp.asarray, gathered),
+                                           JPAL)
     assert_bits_equal(ids, ids_p)
     assert_bits_equal(ix, ix_p)
     np.testing.assert_allclose(d.numpy(), np.asarray(d_p), rtol=1e-5,
@@ -158,12 +198,14 @@ def test_beam_step_matches_reference(case):
 def test_beam_step_matches_unfused_composition():
     """The fused op == pq_adc_batched + mask + concat + stable top-L, the
     composition the hot path runs under beam_step='off'."""
-    codes, luts, cand_ids, cand_d, new_ids = map(T, beam_case(5, 33, 20, 8,
-                                                               seed=23))
+    pq_codes, luts, cand_ids, cand_d, new_ids = map(T, beam_case(
+        5, 33, 20, 8, seed=23))
+    codes = pq_codes[new_ids.clamp(0, len(pq_codes) - 1)]
     d = torch.where(new_ids >= 0, pq_adc_batched_ref(codes, luts), torch.inf)
     merged_d = torch.cat([cand_d, d], 1)
     order = torch.sort(merged_d, dim=1, stable=True).indices[:, :20]
-    ids, got_d, ix = beam_step_ref(codes, luts, cand_ids, cand_d, new_ids)
+    ids, got_d, ix = beam_step_ref(pq_codes, luts, cand_ids, cand_d,
+                                   new_ids)
     assert_bits_equal(ix, order.to(torch.int32))
     assert_bits_equal(ids, torch.gather(torch.cat([cand_ids, new_ids], 1), 1,
                                         order))
@@ -276,3 +318,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     packed, base = byteplane_case(4, 8, seed=0)
     with pytest.raises(ValueError, match="CUDA"):
         byteplane_decode_cuda(T(packed), T(base))
+    with pytest.raises(ValueError, match="CUDA"):
+        beam_step_cuda(*map(T, beam_case(2, 5, 4, 8, seed=0)))
+    slots, _ = ef_slots(8, 64, seed=0)
+    with pytest.raises(ValueError, match="CUDA"):
+        ef_decode_cuda(T(slots.view(np.int32)), 8, 64, T(ef_ids(6)))
