@@ -15,9 +15,12 @@ Phases (any fault exits non-zero; there is no CPU fallback):
 2. parity — each kernel against its plain PyTorch version on the card, at
    the small-world and the shard's shapes, with ragged sizes, empty EF
    lists, all-equal codes, exact distance ties, fully masked rows, empty
-   and unaligned byteplane rows, a SIFT and a prop-like 4 MiB chunk, and
-   one query's exhaustive single-LUT ADC over the shard's codes. Every
-   comparison is bit-exact.
+   and unaligned byteplane rows, a SIFT and a prop-like 4 MiB chunk, one
+   query's exhaustive single-LUT ADC over the shard's codes, and the
+   Huffman load (huffman_decode) over one table and plane tables at
+   V in {16, 25, 100, 128, 512}, 1-bit and 16-bit codes, unsorted rows with
+   and without bases, an odd payload address, records past 2 GiB, and one
+   full 512 MiB segment of each store. Every comparison is bit-exact.
 3. small world — the test suite's world (n=1200, dim=32, r=24, pq_m=8,
    32 queries) built by the port, searched on the card and on the CPU:
    identical ids, distances and SearchStats; with the dense visited set,
@@ -39,15 +42,19 @@ Phases (any fault exits non-zero; there is no CPU fallback):
    searched again (ids and distances equal phase 4's), an exhaustive PQ
    scan of 8 queries through the single-LUT pq_adc kernel; then, with the
    shard freed, --prop-n prop-like float32 vectors drawn on the card,
-   sealed (XOR-delta must win in some chunk) and loaded back through the
-   byteplane kernel (bit-exact; its launches are counted).
+   sealed (XOR-delta must win in some chunk) and loaded back. Every load
+   is one huffman_decode launch per segment (decode and XOR-delta
+   inverse in one kernel; byteplane launches none), bit-exact, with its
+   launches counted; one more load is profiled for the card's busy share.
 5. report — per-kernel times at the shard's shapes (CUDA events, median;
    taken before phase 4b, so the storage phase does not hold the shard's
    tables twice; the kernels that read rows by id cycle through fresh id
    sets), the plain version's and a library call's where one computes the
    same function, the bound, the torch row gathers those kernels absorbed
-   beside a hand-written gather, beam_step's time by survivors, then the
-   contract's last lines.
+   beside a hand-written gather, beam_step's time by survivors, the
+   load's old composition (decode_at_torch + one byteplane launch per
+   chunk) on the segment huffman_decode is timed on, then the contract's
+   last lines.
 """
 from __future__ import annotations
 
@@ -74,7 +81,11 @@ REPLACES = {
     "pq_encode": "src/repro/core/graph/pq.py:62",  # host numpy encode_pq
     "byteplane": "src/repro/kernels/byteplane/byteplane.py:25",
     "pq_adc": "src/repro/kernels/pq_adc/pq_adc.py:53",
+    # host numpy decode_at, then _undelta's byteplane_decode_pallas
+    "huffman_decode": "src/repro/core/codec/huffman.py:205",
 }
+# On no path: absorbed into huffman_decode, which XORs the bases back.
+OFF_PATH = ("byteplane",)
 
 
 def check(cond, msg: str) -> None:
@@ -183,10 +194,11 @@ class Parity:
         from repro_torch.kernels.beam_step import beam_step as bs
         from repro_torch.kernels.byteplane import byteplane as bp
         from repro_torch.kernels.ef_decode import ef_decode as ef
+        from repro_torch.kernels.huffman_decode import huffman_decode as hd
         from repro_torch.kernels.pq_adc import pq_adc as pa
         from repro_torch.kernels.pq_encode import pq_encode as pe
         from repro_torch.kernels.rerank_l2 import rerank_l2 as rr
-        self.torch = torch
+        self.torch, self.seed = torch, seed
         self.dev = torch.device("cuda")
         self.g = torch.Generator(device=self.dev).manual_seed(seed + 1)
         self.ops = {
@@ -199,6 +211,8 @@ class Parity:
             "byteplane": (bp.byteplane_decode_cuda,
                           bp.byteplane_decode_ref),
             "pq_adc": (pa.pq_adc_cuda, pa.pq_adc_ref),
+            "huffman_decode": (hd.huffman_decode_cuda,
+                               hd.huffman_decode_ref),
         }
         self.err = dict.fromkeys(self.ops, 0.0)
         self.cases = dict.fromkeys(self.ops, 0)
@@ -408,8 +422,150 @@ class Parity:
         self.compare("pq_adc", "all-equal codes",
                      torch.full((129, 32), 3, dtype=torch.uint8,
                                 device=self.dev), self.rand(32, 256))
+        # huffman_decode: one table and plane tables over the repo's row
+        # widths, 1-bit and 16-bit codes, a 25-byte row; records past 2 GiB
+        for dist, v, planes in (
+                [("skewed", v, 1) for v in (16, 100, 128, 512)]
+                + [("skewed", v, 2) for v in (16, 100, 128, 512)]
+                + [("prop-like", v, 4) for v in (16, 100, 128, 512)]
+                + [("skewed", 128, 8), ("uniform", 128, 1),
+                   ("constant", 100, 1), ("long-codes", 128, 1),
+                   ("skewed", 25, 1)]):
+            self.huffman_cases(f"{dist} V={v} P={planes}", dist, v, planes)
+        self.huffman_far()
         log(f"parity small: {dict(self.cases)} cases bit-exact "
             f"({time.time() - t0:.1f} s)")
+
+    def huffman_data(self, dist, n, v, planes=1):
+        """[n, v] uint8 rows of ``dist`` on the card and their Huffman
+        table(s): "skewed", "uniform", "prop-like" (fp32 rows), "constant"
+        (one symbol: 1-bit codes) or "long-codes" (a table whose rarest
+        symbols take 16 bits, drawn uniformly so that they occur)."""
+        import numpy as np
+        from repro_torch.core.codec import huffman
+        from repro_torch.data.synthetic import prop_like_torch
+        torch = self.torch
+        if dist == "prop-like":
+            data = prop_like_torch(n, v // 4, int(self.randint(1000, 1)),
+                                   self.dev).view(torch.uint8).reshape(n, v)
+        elif dist == "skewed":
+            data = (self.rand(n, v) ** 2 * 20).clamp(max=255).to(torch.uint8)
+        elif dist == "uniform":
+            data = self.randint(256, n, v, dtype=torch.uint8)
+        elif dist == "constant":
+            data = torch.full((n, v), 7, dtype=torch.uint8, device=self.dev)
+        else:
+            data = self.randint(30, n, v, dtype=torch.uint8)
+        if dist == "long-codes":
+            freqs = np.zeros(256, np.int64)
+            freqs[:30] = 2 ** np.arange(30)[::-1]
+            table = huffman.HuffmanTable.from_frequencies(freqs)
+            check(int(table.lengths.max()) == huffman.MAX_LEN,
+                  "long-codes table has no 16-bit code")
+        elif planes > 1:
+            table = huffman.PlaneTables.from_data(data.cpu().numpy(), planes)
+        else:
+            table = huffman.HuffmanTable.from_data(data.cpu().numpy())
+        return data, table
+
+    def huffman_load(self, data, table, n_bases=3):
+        """A load of 3/4 of the rows of ``data`` encoded on the card, in
+        random order, the last record (it ends at the payload's last byte)
+        first, each row with one of ``n_bases`` bases or none -> (the
+        huffman_decode arguments, the rows the load must give)."""
+        from repro_torch.core.codec import huffman
+        torch = self.torch
+        n, v = data.shape
+        payload, offsets = huffman.encode_records_torch(data, table)
+        rows = torch.randperm(n, generator=self.g, device=self.dev)[
+            :max(1, 3 * n // 4)]
+        rows[0] = n - 1
+        bases = self.randint(256, n_bases, v, dtype=torch.uint8)
+        base_of = (self.randint(n_bases + 1, len(rows)) - 1).to(torch.int32)
+        want = data[rows] ^ torch.where(base_of[:, None] >= 0,
+                                        bases[base_of.clamp(min=0).long()], 0)
+        return (payload, offsets[:-1][rows].contiguous(), v, table, bases,
+                base_of), want
+
+    def huffman_cases(self, label, dist, v, planes, n=300):
+        """One load as it comes (it must give the original rows), at an
+        odd payload address, without bases, and empty."""
+        torch = self.torch
+        args, want = self.huffman_load(*self.huffman_data(dist, n, v, planes))
+        got = self.compare("huffman_decode", label, *args)[0]
+        check(bits_equal(torch, got, want),
+              f"huffman_decode [{label}]: rows not recovered")
+        payload, starts, v, table, bases, base_of = args
+        odd = torch.empty(payload.numel() + 3, dtype=torch.uint8,
+                          device=self.dev)[3:]
+        odd.copy_(payload)
+        self.compare("huffman_decode", f"{label} odd payload address", odd,
+                     starts, v, table, bases, base_of)
+        self.compare("huffman_decode", f"{label} no bases", payload, starts,
+                     v, table, bases[:0], torch.full_like(base_of, -1))
+        self.compare("huffman_decode", f"{label} empty load", payload,
+                     starts[:0], v, table, bases, base_of[:0])
+
+    def huffman_far(self):
+        """Records that start past byte 2^31 of the payload."""
+        torch = self.torch
+        (payload, starts, v, table, bases, base_of), want = \
+            self.huffman_load(*self.huffman_data("skewed", 64, 128))
+        far = (1 << 31) + 5
+        big = torch.zeros(far + payload.numel(), dtype=torch.uint8,
+                          device=self.dev)
+        big[far:] = payload
+        got = self.compare("huffman_decode", "records past 2 GiB", big,
+                           starts + far, v, table, bases, base_of)[0]
+        check(bits_equal(torch, got, want),
+              "huffman_decode past 2 GiB: rows not recovered")
+
+    def segment(self, vecs):
+        """``vecs`` sealed into one full 512 MiB segment of the
+        deployment's vector store ("auto") -> (the segment, the arguments
+        of the load of all its rows, as ``decode_bytes`` makes them)."""
+        from repro_torch.configs.decouplevs_ann import CONFIG
+        from repro_torch.core.storage.vector_store import (
+            DecoupledVectorStore, StoreConfig)
+        torch = self.torch
+        v = vecs[0].numel() * vecs.element_size()
+        cap = CONFIG.segment_bytes // v
+        n = min(cap, vecs.shape[0])
+        vs = DecoupledVectorStore(StoreConfig(
+            dim=vecs.shape[1], dtype=vecs.dtype,
+            chunk_bytes=CONFIG.chunk_bytes, segment_capacity=cap,
+            device=self.dev))
+        vs.append(torch.arange(n, device=self.dev), vecs[:n])
+        vs.seal_active()
+        seg = vs.sealed[0]
+        rows = torch.arange(n, device=self.dev)
+        return seg, (seg.packed.data, seg.packed.rec_start, v, seg.huff,
+                     seg.bases, seg.chunk_base[rows // seg.rows_per_chunk])
+
+    def run_segments(self, shard):
+        """One full segment of each store, loaded whole (bit-exact against
+        the plain version and the vectors); the SIFT one also in random
+        row order. Kept for the report's timings."""
+        from repro_torch.data.synthetic import prop_like_torch
+        torch = self.torch
+        prop = prop_like_torch(Shard.SEGMENT_ROWS_F32, 128, self.seed + 5,
+                               self.dev)
+        self.segments = {"prop-like": self.segment(prop),
+                         "SIFT": self.segment(shard.index.vectors)}
+        for (name, (seg, args)), vecs in zip(self.segments.items(),
+                                             (prop, shard.index.vectors)):
+            got = self.compare("huffman_decode", f"full {name} segment",
+                               *args)[0]
+            check(bool(torch.equal(got, vecs[:got.shape[0]].view(torch.uint8)
+                                   .reshape(got.shape))),
+                  f"full {name} segment: rows not recovered")
+        check(self.segments["prop-like"][0].bases.shape[0] > 0,
+              "the prop-like segment has no chunk with a base")
+        payload, starts, v, table, bases, base_of = self.segments["SIFT"][1]
+        perm = torch.randperm(len(starts), generator=self.g, device=self.dev)
+        self.compare("huffman_decode", "SIFT segment, rows unsorted", payload,
+                     starts[perm], v, table, bases, base_of[perm])
+        self.shard_in["huffman_decode"] = self.segments["prop-like"][1]
 
     def run_shard(self, shard):
         """The shard's own shapes and data, inputs kept for the timings."""
@@ -470,6 +626,7 @@ class Parity:
         }
         self.compare("byteplane", "shard SIFT chunk", *self.delta_chunk(
             shard.index.vectors[:32768]))
+        self.run_segments(shard)
         self.compare("pq_adc_batched", "shard entry",
                      pq_codes[cand_ids[:, :1]], luts)
         for op, args in self.shard_in.items():
@@ -542,6 +699,7 @@ class Shard:
 
     R, M, D = 128, 32, 128
     CHUNK = 1 << 20
+    SEGMENT_ROWS_F32 = (512 << 20) // (128 * 4)   # one prop-like segment
 
     def __init__(self, torch, args):
         from repro_torch.configs.decouplevs_ann import CONFIG
@@ -753,24 +911,9 @@ class Shard:
             search(self.index, self.queries, p)
             torch.cuda.synchronize()
             prof_wall = time.perf_counter() - t0
-        # device-side events only (kernels, memsets, copies): the CPU ops
-        # that launched them carry the same time again
-        rows = [(ev.self_device_time_total, ev.count, ev.key[:60])
-                for ev in prof.key_averages()
-                if ev.device_type == torch.autograd.DeviceType.CUDA
-                and ev.self_device_time_total > 0]
-        busy = sum(r[0] for r in rows) / 1e6
         tag = "fused" if mode == "auto" else "unfused"
-        if not rows:
-            log(f"profile ({tag} search): the profiler recorded no device "
-                f"time: device busy share not measured")
+        if not device_busy(torch, prof, f"{tag} search", wall, prof_wall):
             return
-        rows.sort(reverse=True)
-        top = "; ".join(f"{k} {us / 1e3:.2f} ms x{c}" for us, c, k in rows[:8])
-        log(f"profile ({tag} search): device busy {busy * 1e3:.2f} ms = "
-            f"{100 * busy / wall:.1f}% of the unprofiled wall {wall:.3f} s "
-            f"({100 * busy / prof_wall:.1f}% of the profiled "
-            f"{prof_wall:.3f} s); top device time: {top}")
         ops = sorted(
             ((ev.device_time_total, ev.count, ev.key, ev.input_shapes)
              for ev in prof.key_averages(group_by_input_shape=True)
@@ -780,6 +923,30 @@ class Shard:
         log(f"profile ({tag} search): row-gather ops by input shape: "
             + "; ".join(f"{k} {sh} x{c} {us / 1e3:.2f} ms"
                         for us, c, k, sh in ops[:8]))
+
+
+def device_busy(torch, prof, what, wall, prof_wall) -> bool:
+    """Log the device busy time of a profiled run against its unprofiled
+    and profiled walls, with the top kernels; False if the profiler saw no
+    device time."""
+    # device-side events only (kernels, memsets, copies): the CPU ops
+    # that launched them carry the same time again
+    rows = [(ev.self_device_time_total, ev.count, ev.key[:60])
+            for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA
+            and ev.self_device_time_total > 0]
+    if not rows:
+        log(f"profile ({what}): the profiler recorded no device time: "
+            f"device busy share not measured")
+        return False
+    busy = sum(r[0] for r in rows) / 1e6
+    rows.sort(reverse=True)
+    top = "; ".join(f"{k} {us / 1e3:.2f} ms x{c}" for us, c, k in rows[:8])
+    log(f"profile ({what}): device busy {busy * 1e3:.2f} ms = "
+        f"{100 * busy / wall:.1f}% of the unprofiled wall {wall:.3f} s "
+        f"({100 * busy / prof_wall:.1f}% of the profiled {prof_wall:.3f} s); "
+        f"top device time: {top}")
+    return True
 
 
 # ----------------------------------------------------------------- storage
@@ -816,7 +983,8 @@ class Storage:
 
     def run(self) -> dict:
         launches = self.sift()
-        launches["byteplane"] = self.prop_like()
+        for name, n in self.prop_like().items():
+            launches[name] += n
         return launches
 
     def sift(self) -> dict:
@@ -904,10 +1072,13 @@ class Storage:
                      "rerank_l2", "pq_adc"):
             check(launches[name] > 0, f"{name} never launched on the "
                   f"storage path")
-        check(launches["byteplane"] == n_delta,
-              "byteplane launches != chunks with a base")
+        check(launches["huffman_decode"] == len(vs.sealed),
+              f"huffman_decode launched {launches['huffman_decode']} times "
+              f"for {len(vs.sealed)} segments")
+        check(launches["byteplane"] == 0, "byteplane launched on the load")
         shard.index = None           # the shard's tensors go before prop-like
-        return {"pq_adc": launches["pq_adc"]}
+        return {name: launches[name]
+                for name in ("pq_adc", "huffman_decode", "byteplane")}
 
     def pq_scan(self, index, ids, nq=8, depth=100) -> float:
         """Exhaustive PQ scan of ``nq`` queries through the single-LUT
@@ -927,7 +1098,7 @@ class Storage:
             hits += len(set(best.tolist()) & set(ids[i].tolist()))
         return hits / (nq * k)
 
-    def prop_like(self) -> int:
+    def prop_like(self) -> dict:
         from repro_torch.data.synthetic import prop_like_torch
         from repro_torch.kernels import build
         torch, dev, n, dim = self.torch, self.dev, self.prop_n, 128
@@ -943,16 +1114,19 @@ class Storage:
         t_seal = sync_time(torch, t0)
         n_chunks, n_delta = self.chunks(vs)
         check(n_delta > 0, "the §3.3 test chose XOR-delta in no prop-like "
-              "chunk: the byteplane path would not run")
+              "chunk: the load would XOR no base back")
         build.reset_launches()
         t0 = sync_time(torch)
         loaded = vs.get(torch.arange(n, device=dev), account=False)
         t_load = sync_time(torch, t0)
-        launched = build.LAUNCHES["byteplane"]
+        launched = {name: build.LAUNCHES[name]
+                    for name in ("huffman_decode", "byteplane")}
         check(bool(torch.equal(loaded.view(torch.int32), x.view(torch.int32))),
               "prop-like vectors loaded from the store differ")
-        check(launched == n_delta, f"byteplane launched {launched} times for"
-              f" {n_delta} chunks with a base")
+        check(launched["huffman_decode"] == len(vs.sealed),
+              f"huffman_decode launched {launched['huffman_decode']} times "
+              f"for {len(vs.sealed)} segments")
+        check(launched["byteplane"] == 0, "byteplane launched on the load")
         raw = n * dim * 4
         log(f"storage: prop-like {n} x {dim} float32 ({raw} B) drawn in "
             f"{t_draw:.2f} s, sealed in {t_seal:.2f} s "
@@ -961,9 +1135,23 @@ class Storage:
             f"{vs.physical_bytes} B in blocks + {vs.metadata_bytes} B "
             f"metadata ({100 * (1 - vs.physical_bytes / raw):.2f}% saved); "
             f"all loaded bit-exact in {t_load:.3f} s "
-            f"({raw / t_load / 1e9:.2f} GB/s) with {launched} byteplane "
-            f"launches; peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+            f"({raw / t_load / 1e9:.2f} GB/s) with {launched} launches; "
+            f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        del loaded
+        self.profile_load(vs, n, t_load)
         return launched
+
+    def profile_load(self, vs, n, wall):
+        """Device busy time of one more load of every vector of ``vs``
+        (torch.profiler): how much of the load's wall the card works."""
+        from torch.profiler import ProfilerActivity, profile
+        torch = self.torch
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = sync_time(torch)
+            vs.get(torch.arange(n, device=self.dev), account=False)
+            prof_wall = sync_time(torch, t0)
+        device_busy(torch, prof, "prop-like load", wall, prof_wall)
 
 
 # ------------------------------------------------------------------ report
@@ -1022,6 +1210,14 @@ def bounds(torch, op, args):
     if op == "byteplane":          # launch/roofline.py's 2nV + V bytes
         packed, base = args
         return 2 * packed.numel() + base.numel(), packed.numel()
+    if op == "huffman_decode":     # the records read, the rows written
+        from repro_torch.core.codec.huffman import (decode_at_torch,
+                                                    record_bytes_torch)
+        payload, starts, v, table, bases, base_of = args
+        m = starts.numel()
+        records = int(record_bytes_torch(
+            decode_at_torch(payload, starts, v, table), table).sum())
+        return records + m * (8 + 4 + v) + bases.numel(), 0
     raise KeyError(op)
 
 
@@ -1095,12 +1291,54 @@ def beam_step_regimes(torch, parity) -> None:
         f"{Parity.COLD_SETS} id sets): " + "; ".join(parts))
 
 
+def load_yardstick(torch, parity) -> None:
+    """The load's old composition on each full segment of phase 2:
+    ``decode_at_torch`` then one byteplane launch per chunk with a base,
+    as ``decode_bytes`` ran before huffman_decode absorbed both; its wall
+    beside the kernel's (host clock around synchronised calls, in the
+    order old, kernel, kernel, old) and the kernel's device time."""
+    from repro_torch.core.codec.huffman import decode_at_torch
+    from repro_torch.kernels.byteplane.byteplane import byteplane_decode_cuda
+    kern = parity.ops["huffman_decode"][0]
+    parts = []
+    for name, (seg, args) in parity.segments.items():
+        payload, starts, v, table, _, _ = args
+        rpc = seg.rows_per_chunk
+        based = [(ci * rpc, c.base) for ci, c in enumerate(seg.chunks)
+                 if c.base is not None]
+
+        def old():
+            raw = decode_at_torch(payload, starts, v, table)
+            for lo, base in based:
+                raw[lo:lo + rpc] = byteplane_decode_cuda(raw[lo:lo + rpc],
+                                                         base)
+            return raw
+        check(bits_equal(torch, old(), kern(*args)),
+              f"{name} segment: the old composition != huffman_decode")
+        walls = {"old": [], "kernel": []}
+        for which in ("old", "kernel", "kernel", "old"):
+            t0 = sync_time(torch)
+            old() if which == "old" else kern(*args)
+            walls[which].append(sync_time(torch, t0))
+        ms = cuda_ms(torch, lambda: kern(*args))
+        nbytes = bounds(torch, "huffman_decode", args)[0]
+        parts.append(
+            f"{name} segment ({len(starts)} rows x {v} B, {len(based)} of "
+            f"{len(seg.chunks)} chunks with a base): old composition wall "
+            f"{walls['old']} s ({len(based)} byteplane launches each); "
+            f"huffman_decode wall {walls['kernel']} s, device {ms:.4f} ms, "
+            f"bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms "
+            f"({nbytes / 1e6:.1f} MB)")
+    log("load yardstick: " + "; ".join(parts))
+
+
 def time_kernels(torch, parity) -> dict:
     """Per-kernel device times on the shard's inputs, taken before the
     storage phase; then the parity inputs, which hold the shard's tables,
     are let go."""
     absorbed_gathers(torch, parity)
     beam_step_regimes(torch, parity)
+    load_yardstick(torch, parity)
     times = {}
     for op, args in parity.shard_in.items():
         kern, plain = parity.ops[op]
@@ -1114,6 +1352,7 @@ def time_kernels(torch, parity) -> dict:
             cost=bounds(torch, op, args), sets=len(sets),
             shapes=[tuple(a.shape) for a in args if hasattr(a, "shape")])
     parity.shard_in = parity.cold = parity.beam_regimes = None
+    parity.segments = None
     return times
 
 
@@ -1124,7 +1363,10 @@ def report(parity, launches, times):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / FP32_OPS_PER_S * 1e3
         n_launch = launches[op]
-        check(n_launch > 0, f"{op} has no launches on its path")
+        if op in OFF_PATH:
+            check(n_launch == 0, f"{op} launched on the load path")
+        else:
+            check(n_launch > 0, f"{op} has no launches on its path")
         kernels.append({
             "name": op, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{op}.cu",

@@ -22,13 +22,13 @@ segment is a byte buffer, and a sealed segment keeps its block image, record
 tables, ids, stale mask and chunk bases as tensors. The seal takes the §3.3
 decisions with ``xor_delta.chunk_decisions_torch``, builds the segment's
 Huffman table(s) from a device histogram, packs every chunk at once with
-``pack_blocks_torch`` and encodes each record straight into its block. The
-load path (``decode_rows``) decodes with ``huffman.decode_at_torch`` and then
-calls ``dispatch.byteplane_decode`` once for every chunk that has a base,
-as the reference's ``_undelta`` does: the ``byteplane`` kernel on the card.
-The id -> (segment, row) map is three sorted tensors instead of a dict, and
-rows of one chunk are sliced, not masked, when they arrive sorted. Results,
-bytes and I/O counts equal the reference's.
+``pack_blocks_torch`` and encodes each record straight into its block; it
+keeps the segment's chunk bases stacked, with each chunk's index into
+them. The load path (``decode_rows``) makes one ``dispatch.huffman_decode``
+call per segment: the reference's ``decode_at`` and its per-chunk
+``_undelta`` in one op, the ``huffman_decode`` kernel on the card. The
+id -> (segment, row) map is three sorted tensors instead of a dict.
+Results, bytes and I/O counts equal the reference's.
 """
 from __future__ import annotations
 
@@ -72,6 +72,22 @@ def _rows_per_batch(v: int) -> int:
     return max(1, _BATCH_BYTES // max(1, v))
 
 
+def _stack_bases(bases: list, v: int, device):
+    """A segment's per-chunk bases (a [V] uint8 tensor or None each) ->
+    (each chunk's base as a row of the stack, or None; the stack [c, V];
+    each chunk's row in it, [n_chunks] int32, -1 = no base)."""
+    have = [b for b in bases if b is not None]
+    stack = torch.stack(have) if have else torch.zeros(
+        (0, v), dtype=torch.uint8, device=device)
+    index, rows, k = [], [], 0
+    for b in bases:
+        index.append(-1 if b is None else k)
+        rows.append(None if b is None else stack[k])
+        k += b is not None
+    return rows, stack, torch.tensor(index, dtype=torch.int32,
+                                     device=device)
+
+
 @dataclass
 class ChunkMeta:
     first_block: int
@@ -101,6 +117,8 @@ class SealedSegment:
     dtype: torch.dtype
     dim: int
     rows_per_chunk: int
+    bases: torch.Tensor          # [c, V] uint8: the chunks' bases, stacked
+    chunk_base: torch.Tensor     # [n_chunks] int32 index into bases, -1 none
     stale: torch.Tensor = field(default=None)  # [m] bool
 
     def __post_init__(self):
@@ -144,42 +162,20 @@ class SealedSegment:
             io.read(nblk * BLOCK_SIZE, n=nblk)
         if self.huff is None:
             cols = torch.arange(self.v_bytes, device=rows.device)
-            raw = pk.data[pk.rec_start[rows][:, None] + cols]
-        else:
-            raw = huffman.decode_at_torch(pk.data, pk.rec_start[rows],
-                                          self.v_bytes, self.huff)
-        based = [ci for ci, cm in enumerate(self.chunks)
-                 if cm.base is not None]
-        if not based or not len(rows):
-            return raw
-        chunk = rows // self.rows_per_chunk
-        order = None if bool((chunk[1:] >= chunk[:-1]).all()) \
-            else torch.argsort(chunk, stable=True)
-        if order is not None:
-            chunk = chunk[order]
-        bounds = torch.searchsorted(chunk, torch.arange(
-            len(self.chunks) + 1, device=chunk.device)).tolist()
-        for ci in based:
-            lo, hi = bounds[ci], bounds[ci + 1]
-            if hi == lo:
-                continue
-            base = self.chunks[ci].base
-            if order is None:     # sorted rows: the chunk is one slice
-                raw[lo:hi] = dispatch.byteplane_decode(raw[lo:hi], base,
-                                                       kernels)
-            else:
-                sel = order[lo:hi]
-                raw[sel] = dispatch.byteplane_decode(raw[sel], base, kernels)
-        return raw
+            return pk.data[pk.rec_start[rows][:, None] + cols]
+        base_of = self.chunk_base[rows // self.rows_per_chunk]
+        return dispatch.huffman_decode(pk.data, pk.rec_start[rows],
+                                       self.v_bytes, self.huff, self.bases,
+                                       base_of, kernels)
 
     def decode_rows(self, rows, io: IOStats | None = None,
                     kernels=None) -> torch.Tensor:
         """Fetch + decompress records -> [k, dim] of the store's dtype.
 
-        Every chunk with a base is XOR-ed back through
-        ``dispatch.byteplane_decode`` with ``kernels`` (a ``KernelConfig``,
-        None = all ``auto``): the kernel for tensors on the card, its plain
-        version on the CPU.
+        The records are decoded, and the rows of every chunk with a base
+        XOR-ed back, by one ``dispatch.huffman_decode`` call with
+        ``kernels`` (a ``KernelConfig``, None = all ``auto``): the kernel
+        for tensors on the card, its plain version on the CPU.
         """
         raw = self.decode_bytes(rows, io, kernels)
         return raw.view(self.dtype).reshape(raw.shape[0], self.dim)
@@ -477,8 +473,10 @@ class DecoupledVectorStore:
         else:
             table = None
             lens = torch.full((m,), v, dtype=torch.int64, device=dev)
+        bases, stack, chunk_base = _stack_bases(bases, v, dev)
         if self.cfg.coresident and self._affinity is not None:
-            return self._seal_coresident(ids, data, table, lens, bases, rpc)
+            return self._seal_coresident(ids, data, table, lens, bases,
+                                         stack, chunk_base, rpc)
         # Pack every chunk at once (blocks never span chunks, Fig. 4), then
         # encode each record straight into its block.
         breaks = torch.tensor(chunk_lo, dtype=torch.int64, device=dev)
@@ -499,10 +497,11 @@ class DecoupledVectorStore:
                             base=bases[c]) for c in range(len(chunk_lo))]
         return SealedSegment(ids=ids, packed=pk, chunks=chunks, huff=table,
                              v_bytes=v, dtype=self.dtype, dim=self.cfg.dim,
-                             rows_per_chunk=rpc)
+                             rows_per_chunk=rpc, bases=stack,
+                             chunk_base=chunk_base)
 
-    def _seal_coresident(self, ids, data, table, lens, bases, rpc
-                         ) -> SealedSegment:
+    def _seal_coresident(self, ids, data, table, lens, bases, stack,
+                         chunk_base, rpc) -> SealedSegment:
         """Co-resident seal: the reference's host packing per chunk
         (``pack_blocks_coresident``), records encoded on the device first;
         the merged image and tables go back to the device."""
@@ -553,7 +552,8 @@ class DecoupledVectorStore:
             run_first_id=t(run_first_id), run_block=t(run_block))
         return SealedSegment(ids=ids, packed=merged, chunks=chunks,
                              huff=table, v_bytes=v, dtype=self.dtype,
-                             dim=self.cfg.dim, rows_per_chunk=rpc)
+                             dim=self.cfg.dim, rows_per_chunk=rpc,
+                             bases=stack, chunk_base=chunk_base)
 
     # ------------------------------------------------------------- reads
     def get(self, ids, account: bool = True) -> torch.Tensor:

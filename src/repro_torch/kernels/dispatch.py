@@ -30,7 +30,8 @@ REQUESTED = ("auto", "off")
 class KernelConfig(NamedTuple):
     """Per-op backend request, the reference's five fields. ``pq_adc``
     drives both ADC ops (batched and single-LUT); ``byteplane`` drives the
-    vector store's XOR-delta inverse on loads."""
+    vector store's XOR-delta inverse on loads, which runs inside
+    ``huffman_decode`` (and the standalone ``byteplane_decode``)."""
     pq_adc: str = "auto"
     ef_decode: str = "auto"
     rerank_l2: str = "auto"
@@ -72,6 +73,8 @@ def _registry() -> dict[tuple[str, str], Callable]:
     from .byteplane.byteplane import (byteplane_decode_cuda,
                                       byteplane_decode_ref)
     from .ef_decode.ef_decode import ef_decode_cuda, ef_decode_ref
+    from .huffman_decode.huffman_decode import (huffman_decode_cuda,
+                                                huffman_decode_ref)
     from .pq_adc.pq_adc import (pq_adc_batched_cuda, pq_adc_batched_ref,
                                 pq_adc_cuda, pq_adc_ref)
     from .pq_encode.pq_encode import pq_encode_cuda, pq_encode_ref
@@ -85,6 +88,7 @@ def _registry() -> dict[tuple[str, str], Callable]:
             ("rerank_l2", rerank_l2_ref, rerank_l2_cuda),
             ("beam_step", beam_step_ref, beam_step_cuda),
             ("byteplane", byteplane_decode_ref, byteplane_decode_cuda),
+            ("huffman_decode", huffman_decode_ref, huffman_decode_cuda),
             ("pq_encode", pq_encode_ref, pq_encode_cuda)):
         table[op, "ref"] = ref
         table[op, "cuda"] = kern
@@ -146,6 +150,18 @@ def byteplane_decode(packed, base, cfg: KernelConfig | None = None):
     """[n, V] uint8 XOR [V] uint8 base -> [n, V] uint8 (lossless)."""
     cfg = cfg or KernelConfig()
     return _impl("byteplane", cfg.byteplane, packed)(packed, base)
+
+
+def huffman_decode(payload, starts, v: int, table, bases, base_of,
+                   cfg: KernelConfig | None = None):
+    """The vector store's load of one segment: the Huffman records at byte
+    ``starts`` [m] of ``payload`` decoded to [m, v] uint8 with ``table``
+    (one table or plane tables), row i XOR ``bases[base_of[i]]`` where
+    ``base_of[i] >= 0``. Routed by ``cfg.byteplane``, the field of the
+    XOR-delta inverse on loads."""
+    cfg = cfg or KernelConfig()
+    return _impl("huffman_decode", cfg.byteplane, payload)(
+        payload, starts, v, table, bases, base_of)
 
 
 def beam_step(pq_codes, luts, cand_ids, cand_d, new_ids,

@@ -1,20 +1,24 @@
 """Tests of ``repro_torch`` that need a CUDA card: each hand-written kernel
 against its plain PyTorch version on the card, bit for bit, a search on
 the card against the same search on the CPU, and the vector store sealed
-and loaded on the card against the same store on the CPU. Every test is marked
+and loaded on the card (one ``huffman_decode`` launch a segment) against
+the same store on the CPU. Every test is marked
 ``cuda`` and skips without a card. The file imports neither ``jax`` nor
 ``repro``, so it runs where only the port is installed:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 The seeded numpy case makers here are shared with
-tests/test_torch_kernels.py, which holds the plain versions against the
-JAX reference on the same inputs.
+tests/test_torch_kernels.py and tests/test_torch_huffman_decode.py, which
+hold the plain versions against the JAX reference on the same inputs.
 """
 import numpy as np
 import pytest
 import torch
 
+from conftest import random_graph
+
+from repro_torch.core.codec import huffman
 from repro_torch.core.codec.elias_fano import encode_slot
 from repro_torch.core.index import build_device_index
 from repro_torch.core.search.beam import DeviceIndex, SearchParams, search
@@ -29,6 +33,8 @@ from repro_torch.kernels.byteplane.byteplane import (byteplane_decode_cuda,
 from repro_torch.kernels.dispatch import KernelConfig
 from repro_torch.kernels.ef_decode.ef_decode import (ef_decode_cuda,
                                                      ef_decode_ref)
+from repro_torch.kernels.huffman_decode.huffman_decode import (
+    huffman_decode_cuda, huffman_decode_ref)
 from repro_torch.kernels.pq_adc.pq_adc import (pq_adc_batched_cuda,
                                                pq_adc_batched_ref,
                                                pq_adc_cuda, pq_adc_ref)
@@ -63,6 +69,67 @@ def byteplane_case(n, v, seed):
 
 BYTEPLANE_SHAPES = [(n, v) for n in (0, 1, 255, 256, 257, 4096)
                     for v in (1, 100, 128, 512)]
+
+
+def huffman_case(dist, v, planes=1, n=200, seed=0):
+    """One segment's worth of Huffman records and a load of them ->
+    (payload, starts, table, bases, base_of, want).
+
+    ``dist``: "skewed" or "uniform" bytes, "prop-like" fp32 rows,
+    "constant" (a single-symbol table: 1-bit codes) or "long-codes" (a
+    table whose rarest symbols take the full 16 bits, drawn uniformly so
+    they occur). ``planes`` > 1 codes byte j with plane table j % planes.
+    The load asks for 3/4 of the rows in random order, the last record
+    (it ends at the payload's last byte) among them; 3 chunk bases, each
+    row XOR-ed with one or none (``base_of`` = -1) at random."""
+    rng = np.random.default_rng(seed)
+    if dist == "prop-like":
+        data = make_vector_dataset("prop-like", n, v // 4, seed=seed
+                                   ).view(np.uint8).reshape(n, v)
+    elif dist == "skewed":
+        data = (rng.gamma(1.0, 10.0, size=(n, v)) % 256).astype(np.uint8)
+    elif dist == "uniform":
+        data = rng.integers(0, 256, (n, v), dtype=np.uint8)
+    elif dist == "constant":
+        data = np.full((n, v), 7, dtype=np.uint8)
+    elif dist == "long-codes":
+        data = rng.integers(0, 30, (n, v)).astype(np.uint8)
+    else:
+        raise ValueError(dist)
+    if dist == "long-codes":
+        freqs = np.zeros(256, np.int64)
+        freqs[:30] = 2 ** np.arange(30)[::-1]
+        table = huffman.HuffmanTable.from_frequencies(freqs)
+    elif planes > 1:
+        table = huffman.PlaneTables.from_data(data, planes)
+    else:
+        table = huffman.HuffmanTable.from_data(data)
+    payload, offsets = huffman.encode_records(data, table)
+    rows = rng.permutation(n)[:max(1, 3 * n // 4)]
+    if n - 1 not in rows:
+        rows[0] = n - 1
+    bases = rng.integers(0, 256, (3, v), dtype=np.uint8)
+    base_of = rng.integers(-1, 3, len(rows)).astype(np.int32)
+    want = data[rows] ^ np.where(base_of[:, None] >= 0,
+                                 bases[np.maximum(base_of, 0)], 0)
+    return payload, offsets[:-1][rows], table, bases, base_of, want
+
+
+#: The sweep of the load path's op: one table and plane tables (P = 2, 4,
+#: 8) over the row widths of the repo's datasets, and the hazards.
+HUFFMAN_CASES = {
+    **{f"one-table-v{v}": dict(dist="skewed", v=v) for v in (16, 100, 128,
+                                                             512)},
+    **{f"planes2-v{v}": dict(dist="skewed", v=v, planes=2)
+       for v in (16, 100, 128, 512)},
+    **{f"planes4-v{v}": dict(dist="prop-like", v=v, planes=4)
+       for v in (16, 100, 128, 512)},
+    "planes8-v128": dict(dist="skewed", v=128, planes=8),
+    "uniform-v128": dict(dist="uniform", v=128),
+    "single-symbol": dict(dist="constant", v=100),
+    "16-bit-codes": dict(dist="long-codes", v=128),
+    "one-row": dict(dist="skewed", v=25, n=1),
+}
 
 
 def ef_slots(r_max, universe, seed):
@@ -240,16 +307,50 @@ def test_byteplane_kernel_on_unaligned_rows(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("codec", ["auto", "xor_delta_huffman", "raw"])
-def test_vector_store_on_card_matches_cpu(cuda, codec):
-    """Seal and load on the card (byteplane launched for every chunk with
-    a base) equal the same store on the CPU, byte for byte."""
+@pytest.mark.parametrize("case", sorted(HUFFMAN_CASES))
+def test_huffman_decode_kernel(cuda, case):
+    """The load path's kernel against its plain version: as the case
+    comes, with the payload at an odd address, with no base at all."""
+    kw = HUFFMAN_CASES[case]
+    payload, starts, table, bases, base_of, want = huffman_case(**kw)
+    p, st, b, bo = _on(cuda, payload, starts, bases, base_of)
+    odd = torch.zeros(len(payload) + 3, dtype=torch.uint8, device=cuda)[3:]
+    odd.copy_(p)
+    none = torch.full_like(bo, -1)
+    for args in ((p, st, kw["v"], table, b, bo),
+                 (odd, st, kw["v"], table, b, bo),
+                 (p, st, kw["v"], table, b[:0], none)):
+        got = huffman_decode_cuda(*args)
+        assert_bits_equal(got, huffman_decode_ref(*args))
+    assert_bits_equal(huffman_decode_cuda(p, st, kw["v"], table, b, bo), want)
+
+
+@pytest.mark.cuda
+def test_huffman_decode_kernel_empty_load(cuda):
+    payload, starts, table, bases, base_of, _ = huffman_case("skewed", 16)
+    p, st, b, bo = _on(cuda, payload, starts[:0], bases, base_of[:0])
+    build.reset_launches()
+    assert huffman_decode_cuda(p, st, 16, table, b, bo).shape == (0, 16)
+    assert build.LAUNCHES["huffman_decode"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec,coresident",
+                         [("auto", False), ("xor_delta_huffman", False),
+                          ("plane_huffman", False), ("raw", False),
+                          ("xor_delta_huffman", True)])
+def test_vector_store_on_card_matches_cpu(cuda, codec, coresident):
+    """Seal and load on the card (one huffman_decode launch per segment,
+    none of byteplane) equal the same store on the CPU, byte for byte."""
     vecs = make_vector_dataset("prop-like", 4096, 128, seed=0)
+    adj, _ = random_graph(4096, 8, seed=2)
     stores = []
     for dev in (cuda, "cpu"):
         s = DecoupledVectorStore(StoreConfig(
             dim=128, dtype=np.float32, segment_capacity=4096,
-            chunk_bytes=1 << 20, vector_codec=codec, device=dev))
+            chunk_bytes=1 << 20, vector_codec=codec, coresident=coresident,
+            device=dev))
+        s.set_affinity(adj)
         s.append(np.arange(4096), vecs)
         s.seal_active()
         stores.append(s)
@@ -261,8 +362,8 @@ def test_vector_store_on_card_matches_cpu(cuda, codec):
     build.reset_launches()
     rows = np.random.default_rng(0).permutation(4096)
     got = card.get(rows)
-    based = sum(c.base is not None for c in a.chunks)
-    assert build.LAUNCHES["byteplane"] == based
+    assert build.LAUNCHES["huffman_decode"] == (codec != "raw")
+    assert build.LAUNCHES["byteplane"] == 0
     assert_bits_equal(got, vecs[rows])
     assert_bits_equal(got, cpu.get(rows))
     assert card.io.snapshot() == cpu.io.snapshot()

@@ -1,10 +1,10 @@
 """Port parity tier for the §3.3 storage path: the block layout (numpy
 copy and ``pack_blocks_torch``), the block-store accounting engine, the
-decoupled vector store (seal, load through the ``byteplane`` op, stale
+decoupled vector store (seal, load through the ``huffman_decode`` op, stale
 marks, GC), the Elias-Fano block index store, the raw and co-located
 baselines, and the slice as a whole on a quickstart-sized world, each
 against ``repro`` on the same seeded inputs. Everything runs on the CPU,
-where ``byteplane`` is its plain PyTorch version.
+where ``huffman_decode`` is its plain PyTorch version.
 
 Bytes, I/O counters, cache and prefetch statistics must be identical.
 The only tolerance is the search distances' rtol 1e-6 of
@@ -307,7 +307,7 @@ VS_CASES = [(kind, codec, co)
 def test_vector_store_matches_reference(kind, codec, coresident):
     """Appends across segment boundaries, the seal's block images and chunk
     metadata, reads with and without accounting, stale marks (sealed and
-    mutable rows) and GC (which reloads through ``byteplane``)."""
+    mutable rows) and GC (which reloads through ``huffman_decode``)."""
     dim = {"sift-like": 32, "prop-like": 16, "spacev-like": 25}[kind]
     x = make_vector_dataset(kind, 1200, dim, seed=1)
     a, b = vector_stores(x, segment_capacity=500, chunk_bytes=2048,
@@ -348,10 +348,25 @@ def prop_like_world():
                                 chunk_bytes=2048 * 512)
 
 
+def spy_huffman_decode(monkeypatch) -> list:
+    """Record the ``base_of`` of every call of the plain ``huffman_decode``
+    (the op of the load path on the CPU)."""
+    calls = []
+    ref = dispatch.get_impl("huffman_decode", "ref")
+
+    def spy(payload, starts, v, table, bases, base_of):
+        calls.append(arr(base_of))
+        return ref(payload, starts, v, table, bases, base_of)
+    monkeypatch.setitem(dispatch._registry(), ("huffman_decode", "ref"), spy)
+    return calls
+
+
 def test_prop_like_load_runs_byteplane(monkeypatch):
     """A prop-like world where the reference's §3.3 test chose XOR-delta
-    in one chunk of two: the port seals the same bytes and its load XORs
-    that chunk back through the ``byteplane`` op, once."""
+    in one chunk of two: the port seals the same bytes, and each load of
+    the segment is one ``huffman_decode`` call (the op that carries the
+    byteplane XOR on loads) whose ``base_of`` marks exactly the rows of
+    the chunk with a base."""
     x, a, b = prop_like_world()
     for s in (a, b):
         s.append(np.arange(len(x)), x)
@@ -359,31 +374,32 @@ def test_prop_like_load_runs_byteplane(monkeypatch):
     bases = [c.base is not None for c in a.sealed[0].chunks]
     assert bases == [True, False]
     assert_same_vector_store(a, b)
-    calls = []
-    ref = dispatch.get_impl("byteplane", "ref")
-    monkeypatch.setitem(dispatch._registry(), ("byteplane", "ref"),
-                        lambda p, base: calls.append(p.shape) or ref(p, base))
+    calls = spy_huffman_decode(monkeypatch)
     got = b.get(np.arange(len(x)), account=False)
     np.testing.assert_array_equal(arr(got), x)
-    assert calls == [(2048, 512)]
+    assert len(calls) == 1
+    np.testing.assert_array_equal(
+        calls[0], np.where(np.arange(len(x)) < 2048, 0, -1))
     rows = np.array([4000, 3, 2047, 2048, 17])        # unsorted, both chunks
     np.testing.assert_array_equal(arr(b.get(rows)), a.get(rows))
-    assert calls[1:] == [(3, 512)]
+    assert len(calls) == 2
+    np.testing.assert_array_equal(calls[1], [-1, 0, 0, -1, 0])
     assert a.io.snapshot() == b.io.snapshot()
 
 
 def test_gc_reloads_through_byteplane(monkeypatch):
+    """GC reads the live rows of its victim back in one ``huffman_decode``
+    call; only the live rows of the chunk with a base are XOR-ed."""
     x, a, b = prop_like_world()
     for s in (a, b):
         s.append(np.arange(len(x)), x)
         s.seal_active()
         s.mark_stale(np.arange(0, 2000))
-    calls = []
-    ref = dispatch.get_impl("byteplane", "ref")
-    monkeypatch.setitem(dispatch._registry(), ("byteplane", "ref"),
-                        lambda p, base: calls.append(p.shape) or ref(p, base))
+    calls = spy_huffman_decode(monkeypatch)
     assert a.gc(0.3) == b.gc(0.3) == 1
-    assert calls == [(48, 512)]                  # rows 2000..2047 of chunk 0
+    assert len(calls) == 1                       # rows 2000..4095
+    np.testing.assert_array_equal(
+        calls[0], np.where(np.arange(2000, 4096) < 2048, 0, -1))
     for s in (a, b):
         s.seal_active()
     assert_same_vector_store(a, b)
