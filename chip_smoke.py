@@ -16,7 +16,10 @@ Phases (any fault exits non-zero; there is no CPU fallback):
    the small-world and the shard's shapes, with ragged sizes, empty EF
    lists, all-equal codes, exact distance ties, fully masked rows, empty
    and unaligned byteplane rows, a SIFT and a prop-like 4 MiB chunk, one
-   query's exhaustive single-LUT ADC over the shard's codes, and the
+   query's exhaustive single-LUT ADC over the shard's codes, the ADC and
+   the re-rank reading their rows by id (ids at and past the table's
+   edges, repeats, masked rows, the entry's E = 1, C > 32, D not a
+   multiple of 16, unaligned tables) and without ids, and the
    Huffman load (huffman_decode) over one table and plane tables at
    V in {16, 25, 100, 128, 512}, 1-bit and 16-bit codes, unsorted rows with
    and without bases, an odd payload address, records past 2 GiB, and one
@@ -32,7 +35,9 @@ Phases (any fault exits non-zero; there is no CPU fallback):
    by the ef_decode kernel and compared with the source graph; 1,024
    queries are searched fused and unfused (beam_step="off") under the
    production SearchParams; the two agree bit for bit and the distances
-   equal a recompute. Launch counts are read around each path.
+   equal a recompute. Launch counts are read around each path. A profile
+   of each search fails the run if a torch row gather still reads the
+   shard's PQ codes or vectors (every kernel reads its rows by id).
 4b. storage — the §3.3 path on the same shard: its vectors sealed into the
    decoupled vector store ("auto": the sampled-entropy XOR-delta test per
    chunk, one Huffman table per segment), its graph sealed into the
@@ -51,7 +56,9 @@ Phases (any fault exits non-zero; there is no CPU fallback):
    tables twice; the kernels that read rows by id cycle through fresh id
    sets), the plain version's and a library call's where one computes the
    same function, the bound, the torch row gathers those kernels absorbed
-   beside a hand-written gather, beam_step's time by survivors, the
+   beside a hand-written gather, the unfused hop's and the re-rank's old
+   compositions (torch gather + the kernel without ids) on the same id
+   sets, beam_step's time by survivors, the
    load's old composition (decode_at_torch + one byteplane launch per
    chunk) on the segment huffman_decode is timed on, then the contract's
    last lines.
@@ -280,6 +287,74 @@ class Parity:
         new_ids = torch.where(keep, rows, -1).to(torch.int32)
         return table, luts, cand_ids, cand_d.contiguous(), new_ids
 
+    def table_ids(self, n, nq, e, kind="random"):
+        """[nq, e] int32 row ids into n rows: "random" (30% masked with
+        -1), "kept" (none masked), "edges" (0, n-1, ids past either end),
+        "repeated" (rows 0..2 and -1), "masked-row" (query 0 all -1) or
+        "all-masked"."""
+        torch = self.torch
+        if kind == "edges":
+            edge = torch.tensor([0, n - 1, n, n + 7, -1, -4, 1],
+                                device=self.dev)
+            rows = edge[self.randint(7, nq, e)]
+        elif kind == "repeated":
+            rows = self.randint(4, nq, e) - 1
+        elif kind == "all-masked":
+            rows = torch.full((nq, e), -1, device=self.dev)
+        else:
+            rows = self.randint(n, nq, e)
+            if kind != "kept":
+                rows = torch.where(torch.rand(nq, e, generator=self.g,
+                                              device=self.dev) < 0.7, rows, -1)
+            if kind == "masked-row" and nq:
+                rows[0] = -1
+        return rows.to(torch.int32).contiguous()
+
+    def unaligned(self, t, shift):
+        """A copy of ``t`` that starts ``shift`` elements past an
+        allocation's start (off 16-byte alignment)."""
+        flat = self.torch.empty(t.numel() + shift, dtype=t.dtype,
+                                device=self.dev)
+        return flat[shift:].view(t.shape).copy_(t)
+
+    def by_id_cases(self):
+        """pq_adc_batched and rerank_l2 reading their rows by id: ragged
+        shapes, the entry (E = 1), one query, ids at and past the edges,
+        repeats, masked rows, wide and odd rows, C > 32, D not a multiple
+        of 16, several row tiles, unaligned tables, empty inputs."""
+        torch = self.torch
+        for nq, e, m, kind in [(32, 1, 8, "random"), (1, 130, 32, "random"),
+                               (3, 40, 16, "edges"), (4, 50, 4, "repeated"),
+                               (3, 30, 8, "masked-row"),
+                               (2, 12, 8, "all-masked"), (3, 20, 3, "random"),
+                               (3, 20, 48, "random"), (2, 700, 8, "random"),
+                               (3, 0, 8, "random"), (0, 5, 8, "random")]:
+            table = self.randint(256, 3 * e + 5, m, dtype=torch.uint8)
+            ids = self.table_ids(len(table), nq, e, kind)
+            self.compare("pq_adc_batched", f"by id {nq}x{e}x{m} {kind}",
+                         table, self.rand(nq, m, 256), ids)
+        for m, shift in [(8, 1), (8, 4), (16, 8), (32, 4), (32, 8), (48, 1)]:
+            table = self.randint(256, 200, m, dtype=torch.uint8)
+            self.compare("pq_adc_batched", f"by id M={m} table +{shift} B, "
+                         f"LUTs +4 B", self.unaligned(table, shift),
+                         self.unaligned(self.rand(5, m, 256), 1),
+                         self.table_ids(200, 5, 64))
+        for q, c, d in [(1, 1, 8), (7, 20, 100), (32, 10, 32), (9, 130, 128),
+                        (3, 5, 129), (3, 6, 1100), (1, 10, 128), (3, 0, 32)]:
+            for dtype in ("f32", "u8"):
+                table = (self.rand(2 * q * c + 3, d) if dtype == "f32" else
+                         self.randint(256, 2 * q * c + 3, d,
+                                      dtype=torch.uint8))
+                for kind in ("kept", "edges", "repeated"):
+                    self.compare("rerank_l2", f"by id {dtype} {q}x{c}x{d} "
+                                 f"{kind}", self.rand(q, d) * 20, table,
+                                 self.table_ids(len(table), q, c, kind))
+        for shift in (1, 2, 4, 8):
+            table = self.randint(256, 100, 128, dtype=torch.uint8)
+            self.compare("rerank_l2", f"by id u8 table +{shift} B",
+                         self.rand(6, 128) * 20, self.unaligned(table, shift),
+                         self.table_ids(100, 6, 10, "kept"))
+
     def beam_cases(self, label, nq, e, l_size, m, table=None):
         """The fused hop's cases at one shape: random rows, an unsorted
         candidate half, the first hop, ids at the table's edges, repeated
@@ -371,11 +446,8 @@ class Parity:
                 4, 40, 16, 4, ties=True, cands=cands))
         # tables and LUTs off 16-byte alignment (narrower loads, no bulk)
         args = list(self.beam_case(4, 50, 20, 16))
-        flat = torch.empty(args[0].numel() + 4, dtype=torch.uint8,
-                           device=self.dev)
-        args[0] = flat[4:].view(args[0].shape).copy_(args[0])
-        flat = torch.empty(args[1].numel() + 1, device=self.dev)
-        args[1] = flat[1:].view(args[1].shape).copy_(args[1])
+        args[0] = self.unaligned(args[0], 4)
+        args[1] = self.unaligned(args[1], 1)
         self.compare("beam_step", "unaligned table and LUTs", *args)
         # the small world's hop (n=1200, M=8, E=W*R=96, L=48)
         self.beam_cases("world", 32, 96, 48, 8, table=self.randint(
@@ -392,6 +464,7 @@ class Parity:
         out = self.compare("rerank_l2", "equal rows", qv,
                            qv[:, None, :].expand(4, 9, 32).contiguous())[0]
         check(bool((out == 0).all()), "rerank_l2: equal rows must give 0")
+        self.by_id_cases()
         # pq_encode: the small world's shapes, u8 shard shapes, ties
         for n, d, m in [(1200, 32, 8), (1000, 128, 32), (5, 8, 8)]:
             self.compare("pq_encode", f"f32 {n}x{d} M={m}", self.rand(n, d),
@@ -576,8 +649,8 @@ class Parity:
         luts = shard.luts()
         pq_codes = shard.index.pq_codes
         cand_ids = self.randint(n, nq, L, dtype=torch.int32)
-        cand_d = self.compare("pq_adc_batched", "shard hop",
-                              pq_codes[cand_ids], luts)[0]
+        cand_d = self.compare("pq_adc_batched", "shard candidates by id",
+                              pq_codes, luts, cand_ids)[0]
         cand_d, order = cand_d.sort(1)
         cand_ids = torch.gather(cand_ids, 1, order)
         cand_d = cand_d.contiguous()
@@ -588,17 +661,24 @@ class Parity:
                                           device=self.dev) < 0.6,
                                sel, -1).to(torch.int32)
         # fresh id sets, so the timed calls find their rows cold (report)
+        k_re = shard.p.rerank_batch
         self.cold = {
             "beam_step": [(pq_codes, luts, cand_ids, cand_d, hop_ids())
                           for _ in range(self.COLD_SETS)],
             "ef_decode": [(shard.index.ef_slots, R, n,
                            self.randint(n, nq * W, dtype=torch.int32))
+                          for _ in range(self.COLD_SETS)],
+            "pq_adc_batched": [(pq_codes, luts, hop_ids())
+                               for _ in range(self.COLD_SETS)],
+            # one re-rank batch: k_re ids a query, every one kept
+            "rerank_l2": [(shard.queries, shard.index.vectors,
+                           self.table_ids(n, nq, k_re, "kept"))
                           for _ in range(self.COLD_SETS)]}
         # the search's steady state: the candidate half holds the best L
         # of 4,096 rows a query, so few new ids beat its last entry
         deep = self.randint(n, nq, 4096, dtype=torch.int32)
-        deep_d, order = self.ops["pq_adc_batched"][0](pq_codes[deep],
-                                                      luts).sort(1)
+        deep_d, order = self.ops["pq_adc_batched"][0](pq_codes, luts,
+                                                      deep).sort(1)
         steady = (torch.gather(deep, 1, order[:, :L]).contiguous(),
                   deep_d[:, :L].contiguous())
         del deep, deep_d, order
@@ -609,14 +689,11 @@ class Parity:
             "steady state": [(pq_codes, luts, *steady, hop_ids())
                              for _ in range(self.COLD_SETS)],
             "timed set": self.cold["beam_step"]}
-        new_ids = self.cold["beam_step"][0][4]
-        codes = pq_codes[new_ids.clamp(0, n - 1)]
         self.shard_in = {
-            "pq_adc_batched": (codes, luts),
+            "pq_adc_batched": self.cold["pq_adc_batched"][0],
             "beam_step": self.cold["beam_step"][0],
             "ef_decode": self.cold["ef_decode"][0],
-            "rerank_l2": (shard.queries, shard.index.vectors[
-                self.randint(n, nq, shard.p.rerank_batch)]),
+            "rerank_l2": self.cold["rerank_l2"][0],
             "pq_encode": (shard.index.vectors[:1 << 18].clone(),
                           shard.index.pq_centroids),
             # one query's exhaustive ADC over every code of the shard
@@ -627,8 +704,23 @@ class Parity:
         self.compare("byteplane", "shard SIFT chunk", *self.delta_chunk(
             shard.index.vectors[:32768]))
         self.run_segments(shard)
-        self.compare("pq_adc_batched", "shard entry",
-                     pq_codes[cand_ids[:, :1]], luts)
+        # the entry by id, the hop's edge cases, and both ops without ids
+        # on the rows they read
+        self.compare("pq_adc_batched", "shard entry by id", pq_codes, luts,
+                     cand_ids[:, :1].contiguous())
+        for kind in ("edges", "repeated", "masked-row"):
+            self.compare("pq_adc_batched", f"shard hop {kind}", pq_codes,
+                         luts, self.table_ids(n, nq, W * R, kind))
+        new_ids = self.cold["pq_adc_batched"][0][2]
+        self.compare("pq_adc_batched", "shard hop gathered, no ids",
+                     pq_codes[new_ids.clamp(0, n - 1)], luts)
+        rr_ids = self.cold["rerank_l2"][0][2]
+        for kind in ("edges", "repeated"):
+            self.compare("rerank_l2", f"shard {kind}", shard.queries,
+                         shard.index.vectors,
+                         self.table_ids(n, nq, k_re, kind))
+        self.compare("rerank_l2", "shard gathered, no ids", shard.queries,
+                     shard.index.vectors[rr_ids.long()])
         for op, args in self.shard_in.items():
             out = self.compare(op, "shard", *args)
             if op == "pq_encode":
@@ -912,6 +1004,17 @@ class Shard:
             torch.cuda.synchronize()
             prof_wall = time.perf_counter() - t0
         tag = "fused" if mode == "auto" else "unfused"
+        n = self.index.pq_codes.shape[0]
+        tables = ([n, self.M], [n, self.D])
+        reads = [(ev.key, ev.input_shapes, ev.count) for ev in
+                 prof.key_averages(group_by_input_shape=True)
+                 if ev.key in ("aten::index", "aten::index_select")
+                 and any(list(sh) in tables for sh in ev.input_shapes
+                         if isinstance(sh, (list, tuple)))]
+        check(not reads, f"{tag} search: a torch row gather still reads the "
+              f"shard's PQ codes or vectors: {reads}")
+        log(f"profile ({tag} search): no aten::index reads pq_codes {tables[0]}"
+            f" or vectors {tables[1]}")
         if not device_busy(torch, prof, f"{tag} search", wall, prof_wall):
             return
         ops = sorted(
@@ -1179,7 +1282,12 @@ def cuda_ms(torch, fns, reps=20) -> float:
 def bounds(torch, op, args):
     """(bytes, fp32 ops) the op must move / do on these inputs."""
     if op == "pq_adc_batched":
-        codes, luts = args
+        codes, luts, *ids = args
+        if ids:     # only the rows of valid ids are read
+            m = codes.shape[1]
+            valid = int((ids[0] >= 0).sum())
+            return (valid * m + luts.numel() * 4 + ids[0].numel() * 8,
+                    valid * (m - 1))
         nq, n, m = codes.shape
         return codes.numel() + luts.numel() * 4 + nq * n * 4, nq * n * (m - 1)
     if op == "beam_step":      # only the rows of valid ids are read
@@ -1193,10 +1301,12 @@ def bounds(torch, op, args):
         slots, r_max, _, ids = args
         b = ids.numel()
         return b * slots.shape[1] * 4 + b * 4 + b * (r_max + 1) * 4, 0
-    if op == "rerank_l2":
-        q, x = args
-        return (q.numel() * 4 + x.numel() * x.element_size()
-                + x.shape[0] * x.shape[1] * 4), 3 * x.numel()
+    if op == "rerank_l2":      # by id: every id's row is read (clipped)
+        q, x, *ids = args
+        rows, d = ((ids[0].numel(), x.shape[1]) if ids
+                   else (x.shape[0] * x.shape[1], x.shape[2]))
+        return (q.numel() * 4 + rows * d * x.element_size()
+                + rows * (8 if ids else 4)), 3 * rows * d
     if op == "pq_encode":
         x, cents = args
         m, k, dsub = cents.shape
@@ -1223,13 +1333,14 @@ def bounds(torch, op, args):
 
 def library_call(torch, op, args):
     """One PyTorch call computing the same function, or None."""
-    if op == "pq_adc_batched":
-        codes, luts = args
-        idx = codes.long().transpose(1, 2).contiguous()
+    if op == "pq_adc_batched":   # on the rows of the ids, gathered first
+        table, luts, ids = args
+        idx = table[ids.clamp(0, len(table) - 1)].long().transpose(1, 2)
+        idx = idx.contiguous()
         return lambda: torch.gather(luts, 2, idx).sum(1)
-    if op == "rerank_l2":
-        q, x = args
-        xf = x.float()
+    if op == "rerank_l2":        # on the rows of the ids, gathered first
+        q, table, ids = args
+        xf = table[ids.long()].float()
         return lambda: torch.cdist(q[:, None, :], xf)[:, 0] ** 2
     if op == "pq_adc":
         codes, lut = args
@@ -1243,16 +1354,18 @@ def library_call(torch, op, args):
 
 
 def absorbed_gathers(torch, parity) -> None:
-    """The row gathers the hop issued in front of beam_step and ef_decode
-    before those kernels read their rows by id: the torch index op as the
-    hop issued it (ids clamped), and the plainest hand-written gather of
-    the same rows, on the same cycled id sets (rows cold)."""
+    """The row gathers the search issued in front of beam_step (and the
+    unfused hop's pq_adc_batched), ef_decode and rerank_l2 before those
+    kernels read their rows by id: the torch index op as the search issued
+    it (ids clamped), and the plainest hand-written gather of the same
+    rows, on the same cycled id sets (rows cold)."""
     from repro_torch.kernels.row_gather import row_gather_cuda
     parts = []
-    for op, name, col in (("beam_step", "pq_codes", 4),
-                          ("ef_decode", "ef_slots", 3)):
+    for op, name, tcol, col in (("beam_step", "pq_codes", 0, 4),
+                                ("ef_decode", "ef_slots", 0, 3),
+                                ("rerank_l2", "vectors", 1, 2)):
         sets = parity.cold[op]
-        table = sets[0][0]
+        table = sets[0][tcol]
         n, row_bytes = table.shape[0], table[0].numel() * table.element_size()
         ids = [a[col].reshape(-1).clamp(0, n - 1) for a in sets]
         check(bits_equal(torch, row_gather_cuda(table, ids[0]),
@@ -1267,9 +1380,55 @@ def absorbed_gathers(torch, parity) -> None:
             f"index {t_index:.4f} ms, hand-written {vec}-byte-load gather "
             f"{t_hand:.4f} ms, bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms"
             f" ({nbytes / 1e6:.1f} MB)")
-    log(f"absorbed gathers (no longer issued by the fused hop; each timed "
+    log(f"absorbed gathers (no longer issued by either search; each timed "
         f"cycling {Parity.COLD_SETS} fresh id sets, rows cold): "
         + "; ".join(parts))
+
+
+def old_compositions(torch, parity) -> None:
+    """The unfused hop's ADC and the re-rank's distances as the search ran
+    them before pq_adc_batched and rerank_l2 read their rows by id: the
+    torch index op, then the kernel without ids (and the hop's mask),
+    beside the kernel by id and the kernel without ids on rows gathered
+    beforehand, each cycling the same fresh id sets (rows cold); and the
+    floor of one launch: the smallest hand-written kernel (row_gather of
+    one row)."""
+    from repro_torch.kernels.row_gather import row_gather_cuda
+    adc = parity.ops["pq_adc_batched"][0]
+    rr = parity.ops["rerank_l2"][0]
+
+    def rows(table, ids):         # the torch index op as the search ran it
+        return table[ids.clamp(0, table.shape[0] - 1)]
+
+    def old_hop(table, luts, ids):
+        return torch.where(ids >= 0, adc(rows(table, ids), luts), torch.inf)
+
+    def old_rerank(q, table, ids):
+        return rr(q, rows(table, ids))
+
+    parts = []
+    for op, old, kern, no_ids in (
+            ("pq_adc_batched", old_hop, adc, lambda t, lu, i: (rows(t, i), lu)),
+            ("rerank_l2", old_rerank, rr, lambda q, t, i: (q, rows(t, i)))):
+        sets = parity.cold[op]
+        check(bits_equal(torch, old(*sets[0]), kern(*sets[0])),
+              f"{op}: the old composition != the kernel by id")
+        gathered = [no_ids(*a) for a in sets]
+        t_old = cuda_ms(torch, [lambda a=a: old(*a) for a in sets])
+        t_new = cuda_ms(torch, [lambda a=a: kern(*a) for a in sets])
+        t_pre = cuda_ms(torch, [lambda g=g: kern(*g) for g in gathered])
+        del gathered
+        parts.append(f"{op} {[tuple(a.shape) for a in sets[0]]}: old "
+                     f"composition (torch index + kernel without ids) "
+                     f"{t_old:.4f} ms, kernel by id {t_new:.4f} ms, kernel "
+                     f"without ids on rows gathered beforehand {t_pre:.4f} "
+                     f"ms")
+    q, vectors, ids = parity.cold["rerank_l2"][0]
+    one = ids.reshape(-1)[:1]
+    floor = cuda_ms(torch, lambda: row_gather_cuda(vectors, one))
+    log(f"old compositions (cycling {Parity.COLD_SETS} fresh id sets, rows "
+        f"cold): " + "; ".join(parts) + f"; launch floor (row_gather of one "
+        f"{vectors.shape[1]}-byte row) {floor:.4f} ms")
 
 
 def beam_step_regimes(torch, parity) -> None:
@@ -1281,9 +1440,8 @@ def beam_step_regimes(torch, parity) -> None:
     parts = []
     for name, sets in parity.beam_regimes.items():
         pq_codes, luts, _, cand_d, new_ids = sets[0]
-        d = pq_adc_batched_ref(pq_codes[new_ids.clamp(0, len(pq_codes) - 1)],
-                               luts)
-        live = (new_ids >= 0) & (d < cand_d[:, -1:])
+        d = pq_adc_batched_ref(pq_codes, luts, new_ids)
+        live = d < cand_d[:, -1:]          # masked ids score +inf
         t = cuda_ms(torch, [lambda a=a: kern(*a) for a in sets])
         parts.append(f"{name} (~{float(live.sum(1).float().mean()):.1f} "
                      f"survivors a query) {t:.4f} ms")
@@ -1337,6 +1495,7 @@ def time_kernels(torch, parity) -> dict:
     storage phase; then the parity inputs, which hold the shard's tables,
     are let go."""
     absorbed_gathers(torch, parity)
+    old_compositions(torch, parity)
     beam_step_regimes(torch, parity)
     load_yardstick(torch, parity)
     times = {}

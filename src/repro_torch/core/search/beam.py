@@ -21,7 +21,8 @@ write into one padding column here, which no read looks at.
 
 The compute ops — batched PQ ADC, EF slot decode, the fused hop and the
 exact re-rank — go through ``kernels.dispatch``: a CUDA kernel on a CUDA
-index, the plain PyTorch version on a CPU index.
+index, the plain PyTorch version on a CPU index. Each takes the shard's
+table and the ids of the rows it reads, so no row gather precedes it.
 """
 from __future__ import annotations
 
@@ -167,8 +168,8 @@ def traverse(index: DeviceIndex, luts: torch.Tensor, p: SearchParams):
     hint_len = p.max_iters if p.trace_hints else 0
 
     entry = index.medoid.to(torch.int32).expand(nq).contiguous()
-    e_d = dispatch.pq_adc_batched(index.pq_codes[entry][:, None, :], luts,
-                                  p.kernels)[:, 0]
+    e_d = dispatch.pq_adc_batched(index.pq_codes, luts, p.kernels,
+                                  ids=entry[:, None])[:, 0]
     cand_ids = torch.full((nq, L), -1, dtype=torch.int32, device=dev)
     cand_ids[:, 0] = entry
     cand_d = torch.full((nq, L), torch.inf, dtype=torch.float32, device=dev)
@@ -258,10 +259,9 @@ def traverse(index: DeviceIndex, luts: torch.Tensor, p: SearchParams):
                 index.pq_codes, luts, cand_ids, cand_d, new_ids, p.kernels)
             top_i = top_i.long()
         else:
-            codes = index.pq_codes[new_ids.clamp(0, n - 1)]
-            new_d = torch.where(
-                ok, dispatch.pq_adc_batched(codes, luts, p.kernels),
-                torch.inf)
+            # the ADC reads the code rows of new_ids; +inf where masked
+            new_d = dispatch.pq_adc_batched(index.pq_codes, luts, p.kernels,
+                                            ids=new_ids)
             merged_ids = torch.cat([cand_ids, new_ids], 1)
             cand_d, top_i = stable_smallest(torch.cat([cand_d, new_d], 1), L)
             cand_ids = torch.gather(merged_ids, 1, top_i)
@@ -303,7 +303,7 @@ def rerank(index: DeviceIndex, queries: torch.Tensor, cand_ids: torch.Tensor,
 
     def exact(ids):
         safe = ids.clamp(0, n - 1)
-        d = dispatch.rerank_l2(queries, index.vectors[safe], p.kernels)
+        d = dispatch.rerank_l2(queries, index.vectors, p.kernels, ids=safe)
         if p.filter_tombstones:
             d = torch.where(index.tombstone[safe], torch.inf, d)
         return torch.where(ids >= 0, d, torch.inf)

@@ -33,9 +33,7 @@ def stable_smallest(x: torch.Tensor, k: int):
 
 def beam_step_ref(pq_codes, luts, cand_ids, cand_d, new_ids):
     l_size = cand_ids.shape[1]
-    codes = pq_codes[new_ids.clamp(0, pq_codes.shape[0] - 1)]
-    d = pq_adc_batched_ref(codes, luts)
-    new_d = torch.where(new_ids >= 0, d, torch.inf)
+    new_d = pq_adc_batched_ref(pq_codes, luts, new_ids)
     merged_ids = torch.cat([cand_ids, new_ids], 1)
     merged_d = torch.cat([cand_d, new_d], 1)
     top_d, top_i = stable_smallest(merged_d, l_size)

@@ -3,10 +3,11 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into its own shared library under
 ``<repo>/build/kernels/`` (listed in ``.gitignore``), named by a hash of the
-source and the flags: a library is rebuilt exactly when its source or the
-flags change. All missing libraries are compiled at once, one ``nvcc``
-process per source, at the first launch (or by ``build_all``). Nothing is
-built when this module is imported, so the CPU tests import it freely.
+source, the shared headers (``csrc/*.cuh``) and the flags: a library is
+rebuilt exactly when one of them changes. All missing libraries are
+compiled at once, one ``nvcc`` process per source, at the first launch (or
+by ``build_all``). Nothing is built when this module is imported, so the
+CPU tests import it freely.
 
 Every C entry point takes pointers and the stream as ``void*`` and returns
 ``cudaGetLastError()`` after its launch; ``launch`` raises on a non-zero
@@ -57,7 +58,8 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

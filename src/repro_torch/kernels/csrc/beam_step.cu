@@ -22,7 +22,9 @@
 //   (two 16-byte loads for a 32-byte row; narrower loads when M or the
 //   table's address does not allow them; rows wider than 32 bytes are read
 //   byte by byte in the fold). It then waits on the barrier and folds m in
-//   order with __fadd_rn, bit-identical to the plain version.
+//   order with __fadd_rn, bit-identical to the plain version. The copy,
+//   the row loads and the fold are adc_rows.cuh's, shared with
+//   pq_adc_batched.cu.
 // - Top-L by filter and merge. Every merged entry has a 64-bit key: the
 //   order-preserving bits of its distance (-0 folded onto +0) above its
 //   merged index, so keys are distinct and ascend in (distance, index)
@@ -42,12 +44,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "adc_rows.cuh"
+
 namespace {
+
+using adc::fold_row;
+using adc::kRowBytes;
+using adc::load_row;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 2;       // rows a thread holds in registers per group
-constexpr int kRowBytes = 32;  // widest row kept in registers
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ unsigned long long sort_key(float d, unsigned t) {
@@ -55,63 +62,6 @@ __device__ __forceinline__ unsigned long long sort_key(float d, unsigned t) {
   if (u == 0x80000000u) u = 0u;  // -0 ties with +0, as a float compare does
   u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
   return ((unsigned long long)u << 32) | t;
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-// Row `id` of the table into w[0..8) (bytes little-endian), VEC bytes a
-// load; VEC == 0 keeps nothing (rows wider than kRowBytes).
-template <int VEC>
-__device__ __forceinline__ void load_row(const uint8_t* __restrict__ table,
-                                         long long id, int m, uint32_t* w) {
-  const uint8_t* src = table + id * m;
-  if (VEC == 16) {
-#pragma unroll
-    for (int j = 0; j < kRowBytes / 16; ++j)
-      if (j * 16 < m) {
-        const uint4 v = __ldg((const uint4*)src + j);
-        w[4 * j] = v.x; w[4 * j + 1] = v.y;
-        w[4 * j + 2] = v.z; w[4 * j + 3] = v.w;
-      }
-  } else if (VEC == 8) {
-#pragma unroll
-    for (int j = 0; j < kRowBytes / 8; ++j)
-      if (j * 8 < m) {
-        const uint2 v = __ldg((const uint2*)src + j);
-        w[2 * j] = v.x; w[2 * j + 1] = v.y;
-      }
-  } else if (VEC == 4) {
-#pragma unroll
-    for (int j = 0; j < kRowBytes / 4; ++j)
-      if (j * 4 < m) w[j] = __ldg((const uint32_t*)src + j);
-  } else if (VEC == 1) {
-#pragma unroll
-    for (int j = 0; j < kRowBytes / 4; ++j) w[j] = 0u;
-#pragma unroll
-    for (int j = 0; j < kRowBytes; ++j)
-      if (j < m) w[j >> 2] |= (uint32_t)__ldg(src + j) << (8 * (j & 3));
-  }
-}
-
-// ADC of one row, m folded in order (lut in shared memory, [m, k]).
-template <int VEC>
-__device__ __forceinline__ float fold_row(const float* lut, const uint32_t* w,
-                                          const uint8_t* __restrict__ table,
-                                          long long id, int m, int k) {
-  if (VEC == 0) {
-    const uint8_t* c = table + id * m;
-    float d = lut[__ldg(c)];
-    for (int j = 1; j < m; ++j) d = __fadd_rn(d, lut[j * k + __ldg(c + j)]);
-    return d;
-  }
-  float d = lut[w[0] & 0xffu];
-#pragma unroll
-  for (int j = 1; j < kRowBytes; ++j)
-    if (j < m) d = __fadd_rn(d, lut[j * k + ((w[j >> 2] >> (8 * (j & 3)))
-                                             & 0xffu)]);
-  return d;
 }
 
 // Ascending bitonic sort of keys[0..p), p a power of two; ends synced.
@@ -169,21 +119,9 @@ beam_step_kernel(const uint8_t* __restrict__ table, long long n,
   const unsigned lut_bytes = (unsigned)(m * k * sizeof(float));
 
   if (bulk) {
-    if (tid == 0) {
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
-                   :: "r"(smem_addr(bar)) : "memory");
-      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    }
+    if (tid == 0) adc::lut_barrier_init(bar);
     __syncthreads();
-    if (tid == 0) {
-      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                   :: "r"(smem_addr(bar)), "r"(lut_bytes) : "memory");
-      asm volatile(
-          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-          " [%0], [%1], %2, [%3];\n"
-          :: "r"(smem_addr(lut)), "l"(lq), "r"(lut_bytes),
-             "r"(smem_addr(bar)) : "memory");
-    }
+    if (tid == 0) adc::lut_copy_start(lut, lq, lut_bytes, bar);
   }
 
   // Group 0's rows go out first: their loads fly while the LUT arrives.
@@ -214,17 +152,7 @@ beam_step_kernel(const uint8_t* __restrict__ table, long long n,
     for (int i = tid; i < m * k; i += kThreads) lut[i] = lq[i];
   if (__syncthreads_or(unsorted)) bitonic(ckeys, lpad);
   const unsigned long long thr = ckeys[l_size - 1];
-  if (bulk) {
-    unsigned done = 0;
-    for (long long spin = 0; !done; ++spin) {
-      if (spin == (1ll << 24)) __trap();  // a copy that never lands faults
-      asm volatile(
-          "{\n .reg .pred p;\n"
-          " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
-          " selp.u32 %0, 1, 0, p;\n}\n"
-          : "=r"(done) : "r"(smem_addr(bar)) : "memory");
-    }
-  }
+  if (bulk) adc::lut_copy_wait(bar);
 
   // Score, filter and compact, one group of kRows * kThreads rows a pass.
   int kept = 0;  // survivors so far, the same in every thread
@@ -347,10 +275,11 @@ extern "C" int beam_step(const void* table, const void* luts,
                          long long k, void* stream) {
   const Args a{table, luts, cand_ids, cand_d, new_ids, out_ids, out_d,
                out_idx, n, nq, e, l_size, m, k, (cudaStream_t)stream};
-  const uintptr_t at = (uintptr_t)table;
-  if (m > kRowBytes) return launch_vec<0>(a);
-  if (m % 16 == 0 && at % 16 == 0) return launch_vec<16>(a);
-  if (m % 8 == 0 && at % 8 == 0) return launch_vec<8>(a);
-  if (m % 4 == 0 && at % 4 == 0) return launch_vec<4>(a);
-  return launch_vec<1>(a);
+  switch (adc::row_vec(table, m)) {
+    case 0: return launch_vec<0>(a);
+    case 16: return launch_vec<16>(a);
+    case 8: return launch_vec<8>(a);
+    case 4: return launch_vec<4>(a);
+    default: return launch_vec<1>(a);
+  }
 }

@@ -1,58 +1,120 @@
-// pq_adc_batched: per-query PQ asymmetric distance computation on Hopper.
+// pq_adc_batched: per-query PQ asymmetric distance computation on Hopper,
+// the code rows read by id.
 //
 // Replaces src/repro/kernels/pq_adc/pq_adc.py::pq_adc_batched_pallas
 // (_kernel_batched), which scored codes by a one-hot x LUT matmul on the
 // TPU's MXU. Here the lookup is a plain gather from shared memory.
 //
-//   codes [nq, n, M] uint8, luts [nq, M, K] float32 -> out [nq, n] float32
-//   out[q, i] = lut[q, 0, c0] + lut[q, 1, c1] + ... (left fold, m in order)
+//   table [N, M] uint8, luts [nq, M, K] float32, ids [nq, E] int32
+//   -> out [nq, E] float32
+//   out[q, e] = ADC of table[min(ids[q, e], N - 1)] against luts[q]
+//               (lut[q, 0, c0] + lut[q, 1, c1] + ..., m folded in order),
+//   +inf where ids < 0 (no row read) — beam_step's scoring contract.
+//   Without ids (null), the table is the [nq * E, M] view of gathered
+//   [nq, E, M] codes and out[q, e] scores row q * E + e.
 //
-// Bound: bytes. Each row reads M code bytes and writes 4 bytes; each
-// query's LUT (M*K*4 = 32 KiB at M=32) is read once per block of rows.
-// Design: one block per (query, tile of 256 rows); the block stages its
-// query's LUT in shared memory and each thread folds one row's M lookups
-// in order with __fadd_rn, so the sum is bit-identical to the plain
-// PyTorch version's left fold.
+// Bound: bytes — each query's LUT (M*K*4 = 32 KiB at M=32) read once, the
+// valid rows' M bytes, the ids and the output: ~48 MB at the shard's hop
+// (nq=1024, E=512, 60% valid, M=32). Design: one block per query, so each
+// LUT is read once. One thread starts a bulk copy of the LUT into shared
+// memory on an mbarrier; meanwhile every thread reads its ids and loads
+// its rows into registers (two 16-byte loads a 32-byte row; narrower
+// loads where M or the table's address does not allow them). After the
+// barrier each thread folds its rows in order with __fadd_rn, so the sum
+// is bit-identical to the plain version's left fold. The copy, the loads
+// and the fold are adc_rows.cuh's, shared with beam_step.cu.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "adc_rows.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kRows = 2;  // rows a thread holds in registers per group
 
-__global__ void pq_adc_batched_kernel(const uint8_t* __restrict__ codes,
-                                      const float* __restrict__ luts,
-                                      float* __restrict__ out, long long n,
-                                      int m, int k, long long tiles) {
-  extern __shared__ float lut[];
-  const long long q = blockIdx.x / tiles;
-  const long long row = (blockIdx.x % tiles) * kThreads + threadIdx.x;
+template <int VEC>
+__global__ void __launch_bounds__(kThreads)
+pq_adc_batched_kernel(const uint8_t* __restrict__ table, long long n,
+                      const float* __restrict__ luts,
+                      const int32_t* __restrict__ ids,
+                      float* __restrict__ out, int e, int m, int k, int bulk,
+                      int off_bar) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* lut = (float*)smem;
+  unsigned long long* bar = (unsigned long long*)(smem + off_bar);
+  const int tid = threadIdx.x;
+  const long long q = blockIdx.x;
   const float* lq = luts + q * m * k;
-  for (int i = threadIdx.x; i < m * k; i += kThreads) lut[i] = lq[i];
-  __syncthreads();
-  if (row >= n) return;
-  const uint8_t* c = codes + (q * n + row) * m;
-  float acc = lut[c[0]];
-  for (int j = 1; j < m; ++j) acc = __fadd_rn(acc, lut[j * k + c[j]]);
-  out[q * n + row] = acc;
+  if (bulk) {
+    if (tid == 0) adc::lut_barrier_init(bar);
+    __syncthreads();
+    if (tid == 0)
+      adc::lut_copy_start(lut, lq, (unsigned)(m * k * sizeof(float)), bar);
+  }
+  const int group = kRows * kThreads;
+  for (int g0 = 0; g0 < e; g0 += group) {
+    long long rid[kRows];
+    uint32_t w[kRows][adc::kRowBytes / 4];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int x = g0 + r * kThreads + tid;
+      rid[r] = x >= e ? -1 : ids ? (long long)ids[q * e + x] : q * e + x;
+      if (rid[r] >= n) rid[r] = n - 1;
+      if (rid[r] >= 0) adc::load_row<VEC>(table, rid[r], m, w[r]);
+    }
+    if (g0 == 0) {  // the first group's loads fly while the LUT arrives
+      if (bulk) {
+        adc::lut_copy_wait(bar);
+      } else {
+        for (int i = tid; i < m * k; i += kThreads) lut[i] = lq[i];
+        __syncthreads();
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int x = g0 + r * kThreads + tid;
+      if (x < e)
+        out[q * e + x] = rid[r] >= 0
+            ? adc::fold_row<VEC>(lut, w[r], table, rid[r], m, k)
+            : __int_as_float(0x7f800000);
+    }
+  }
+}
+
+template <int VEC>
+int launch_vec(const void* table, const void* luts, const void* ids,
+               void* out, long long n, long long nq, long long e,
+               long long m, long long k, cudaStream_t stream) {
+  const size_t lut_bytes = (size_t)m * k * sizeof(float);
+  const int bulk = ((uintptr_t)luts % 16 == 0) && (lut_bytes % 16 == 0);
+  const size_t off_bar = (lut_bytes + 15) & ~(size_t)15;
+  const size_t smem = off_bar + 16;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        pq_adc_batched_kernel<VEC>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  pq_adc_batched_kernel<VEC><<<(unsigned)nq, kThreads, smem, stream>>>(
+      (const uint8_t*)table, n, (const float*)luts, (const int32_t*)ids,
+      (float*)out, (int)e, (int)m, (int)k, bulk, (int)off_bar);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int pq_adc_batched(const void* codes, const void* luts, void* out,
-                              long long nq, long long n, long long m,
+// ids == nullptr: the table is [nq * e, m] and no row is masked.
+extern "C" int pq_adc_batched(const void* table, const void* luts,
+                              const void* ids, void* out, long long n,
+                              long long nq, long long e, long long m,
                               long long k, void* stream) {
-  const size_t smem = (size_t)m * k * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        pq_adc_batched_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (adc::row_vec(table, m)) {
+    case 0: return launch_vec<0>(table, luts, ids, out, n, nq, e, m, k, s);
+    case 16: return launch_vec<16>(table, luts, ids, out, n, nq, e, m, k, s);
+    case 8: return launch_vec<8>(table, luts, ids, out, n, nq, e, m, k, s);
+    case 4: return launch_vec<4>(table, luts, ids, out, n, nq, e, m, k, s);
+    default: return launch_vec<1>(table, luts, ids, out, n, nq, e, m, k, s);
   }
-  const long long tiles = (n + kThreads - 1) / kThreads;
-  pq_adc_batched_kernel<<<(unsigned)(nq * tiles), kThreads, smem,
-                          (cudaStream_t)stream>>>(
-      (const uint8_t*)codes, (const float*)luts, (float*)out, n, (int)m,
-      (int)k, tiles);
-  return (int)cudaGetLastError();
 }

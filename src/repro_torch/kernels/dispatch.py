@@ -124,10 +124,12 @@ def pq_adc(codes, lut, cfg: KernelConfig | None = None):
     return _impl("pq_adc", cfg.pq_adc, codes)(codes, lut)
 
 
-def pq_adc_batched(codes, luts, cfg: KernelConfig | None = None):
-    """[nq, n, M] codes x [nq, M, K] per-query LUTs -> [nq, n]."""
+def pq_adc_batched(codes, luts, cfg: KernelConfig | None = None, ids=None):
+    """[N, M] uint8 code table x [nq, M, K] per-query LUTs, rows ``ids``
+    [nq, E] int32 (clipped to N - 1) -> [nq, E], +inf where ids < 0; without
+    ids, [nq, n, M] codes -> [nq, n]."""
     cfg = cfg or KernelConfig()
-    return _impl("pq_adc_batched", cfg.pq_adc, codes)(codes, luts)
+    return _impl("pq_adc_batched", cfg.pq_adc, codes)(codes, luts, ids)
 
 
 def ef_decode(slots, r_max: int, universe: int,
@@ -140,10 +142,12 @@ def ef_decode(slots, r_max: int, universe: int,
                                                     ids)
 
 
-def rerank_l2(queries, cands, cfg: KernelConfig | None = None):
-    """[Q, D] queries x [Q, C, D] candidates -> squared L2 [Q, C]."""
+def rerank_l2(queries, cands, cfg: KernelConfig | None = None, ids=None):
+    """[Q, D] queries x the [N, D] table, rows ``ids`` [Q, C] int32
+    (clipped to [0, N - 1], nothing masked) -> squared L2 [Q, C]; without
+    ids, [Q, C, D] candidates."""
     cfg = cfg or KernelConfig()
-    return _impl("rerank_l2", cfg.rerank_l2, cands)(queries, cands)
+    return _impl("rerank_l2", cfg.rerank_l2, cands)(queries, cands, ids)
 
 
 def byteplane_decode(packed, base, cfg: KernelConfig | None = None):

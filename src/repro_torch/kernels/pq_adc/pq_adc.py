@@ -1,11 +1,16 @@
 """PQ ADC, batched and single-LUT.
 
-Batched: ``[nq, n, M]`` codes x ``[nq, M, K]`` per-query LUTs -> ``[nq, n]``
-distances, each query's rows scored against its own LUT.
-``pq_adc_batched_cuda`` launches ``csrc/pq_adc_batched.cu`` (the port of
-``repro/kernels/pq_adc/pq_adc.py::pq_adc_batched_pallas``);
-``pq_adc_batched_ref`` is its plain PyTorch version (the reference's
-``pq_adc_batched_ref``).
+Batched, by id: the ``[N, M]`` uint8 code table x ``[nq, M, K]``
+per-query LUTs, rows ``ids`` ``[nq, E]`` int32 -> ``[nq, E]`` distances:
+row ``min(ids[q, e], N - 1)`` scored against LUT q, +inf where
+``ids < 0`` (no row read) — ``beam_step``'s scoring contract. Without ids,
+``codes`` is ``[nq, n, M]``, each query's rows scored against its own LUT
+(the reference's contract). ``pq_adc_batched_cuda`` launches
+``csrc/pq_adc_batched.cu`` (the port of
+``repro/kernels/pq_adc/pq_adc.py::pq_adc_batched_pallas``), which reads
+the rows by id itself; ``pq_adc_batched_ref`` is its plain PyTorch version
+(the reference's ``pq_adc_batched_ref`` on the gathered rows, then the
+mask).
 
 Single LUT: ``[n, M]`` uint8 or int32 codes x ``[M, K]`` LUT -> ``[n]``.
 ``pq_adc_cuda`` launches ``csrc/pq_adc.cu`` (the port of
@@ -20,8 +25,11 @@ import torch
 from ..build import check_cuda, launch
 
 
-def pq_adc_batched_ref(codes: torch.Tensor,
-                       luts: torch.Tensor) -> torch.Tensor:
+def pq_adc_batched_ref(codes: torch.Tensor, luts: torch.Tensor,
+                       ids: torch.Tensor | None = None) -> torch.Tensor:
+    if ids is not None:
+        d = pq_adc_batched_ref(codes[ids.clamp(0, codes.shape[0] - 1)], luts)
+        return torch.where(ids >= 0, d, torch.inf)
     nq, n, m = codes.shape
     idx = codes.to(torch.int64)
     acc = torch.gather(luts[:, 0, :], 1, idx[:, :, 0])
@@ -30,19 +38,27 @@ def pq_adc_batched_ref(codes: torch.Tensor,
     return acc
 
 
-def pq_adc_batched_cuda(codes: torch.Tensor,
-                        luts: torch.Tensor) -> torch.Tensor:
-    nq, n, m = codes.shape
+def pq_adc_batched_cuda(codes: torch.Tensor, luts: torch.Tensor,
+                        ids: torch.Tensor | None = None) -> torch.Tensor:
+    if ids is None:
+        nq, e, m = codes.shape
+        n = nq * e
+    else:
+        (n, m), (nq, e) = codes.shape, ids.shape
+        if ids.dtype != torch.int32:
+            raise TypeError("pq_adc_batched takes int32 ids")
+        if n == 0 and nq * e:
+            raise ValueError("pq_adc_batched: ids into an empty table")
     if codes.dtype != torch.uint8 or luts.dtype != torch.float32:
         raise TypeError("pq_adc_batched takes uint8 codes and float32 LUTs")
     if luts.shape[:2] != (nq, m):
         raise ValueError(f"LUTs {tuple(luts.shape)} do not match codes "
                          f"{tuple(codes.shape)}")
-    dev = check_cuda(codes, luts)
-    out = torch.empty((nq, n), dtype=torch.float32, device=dev)
-    if nq * n:
-        launch("pq_adc_batched", "pq_adc_batched", codes, luts, out,
-               nq, n, m, luts.shape[2])
+    dev = check_cuda(codes, luts, *(() if ids is None else (ids,)))
+    out = torch.empty((nq, e), dtype=torch.float32, device=dev)
+    if nq * e:
+        launch("pq_adc_batched", "pq_adc_batched", codes, luts, ids, out,
+               n, nq, e, m, luts.shape[2])
     return out
 
 

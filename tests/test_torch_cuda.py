@@ -200,6 +200,84 @@ BEAM_CASES = {
 }
 
 
+def table_ids(nq, e, n, rng, ids):
+    """[nq, e] int32 row ids into a table of n rows. ``ids``: "random"
+    (30% masked with -1), "edges" (0, n-1, ids past either end), "repeated"
+    (rows 0..2, some -1), "masked-row" (random, row 0 all -1),
+    "all-masked"."""
+    if ids == "edges":
+        rows = rng.choice(np.array([0, n - 1, n, n + 7, -1, -4, 1]), (nq, e))
+    elif ids == "repeated":
+        rows = rng.integers(-1, 3, (nq, e))
+    elif ids == "all-masked":
+        rows = np.full((nq, e), -1)
+    else:
+        rows = np.where(rng.random((nq, e)) < 0.7,
+                        rng.integers(0, n, (nq, e)), -1)
+        if ids == "masked-row" and nq:
+            rows[0] = -1
+    return rows.astype(np.int32)
+
+
+def adc_ids_case(nq, e, m, seed, ids="random"):
+    """(pq_codes [n, M] uint8, luts [nq, M, 256], ids [nq, E] int32): the
+    by-id form of pq_adc_batched (ids as ``table_ids`` makes them)."""
+    rng = np.random.default_rng(seed)
+    n = 3 * e + 5
+    table = rng.integers(0, 256, (n, m), dtype=np.uint8)
+    luts = rng.normal(size=(nq, m, 256)).astype(np.float32)
+    return table, luts, table_ids(nq, e, n, rng, ids)
+
+
+#: pq_adc_batched by id: the hop and the entry (E = 1), one query, ids at
+#: the table's edges and past them, repeats, masked rows, odd and wide
+#: rows, more rows than one group of the kernel (512), and no rows.
+ADC_ID_CASES = {
+    "world-hop": dict(nq=8, e=96, m=8, seed=1),
+    "shard-hop": dict(nq=4, e=512, m=32, seed=2),
+    "entry": dict(nq=32, e=1, m=8, seed=3),
+    "one-query": dict(nq=1, e=130, m=32, seed=4),
+    "id-edges": dict(nq=3, e=40, m=16, seed=5, ids="edges"),
+    "repeated-ids": dict(nq=4, e=50, m=4, seed=6, ids="repeated"),
+    "masked-row": dict(nq=3, e=30, m=8, seed=7, ids="masked-row"),
+    "all-masked": dict(nq=2, e=12, m=8, seed=8, ids="all-masked"),
+    "odd-width": dict(nq=3, e=20, m=3, seed=9),
+    "two-groups": dict(nq=2, e=700, m=8, seed=10),
+    "empty": dict(nq=3, e=0, m=8, seed=11),
+}
+
+
+def rerank_ids_case(q, c, d, seed, dtype=np.uint8, ids="random"):
+    """(queries [Q, D] f32, table [N, D] of ``dtype``, ids [Q, C] int32):
+    the by-id form of rerank_l2. Every id is kept ("random" draws no -1;
+    "edges" ids past either end clip)."""
+    rng = np.random.default_rng(seed)
+    n = 2 * q * c + 3
+    queries = (rng.normal(size=(q, d)) * 20).astype(np.float32)
+    table = (rng.integers(0, 256, (n, d)) if dtype == np.uint8
+             else rng.normal(size=(n, d))).astype(dtype)
+    rows = (rng.integers(0, n, (q, c)).astype(np.int32) if ids == "random"
+            else table_ids(q, c, n, rng, ids))
+    return queries, table, rows
+
+
+#: rerank_l2 by id: the re-rank batch (C = 10) at the small world's and
+#: the shard's widths, one query, one candidate, more than 32 candidates,
+#: D not a multiple of 16, ids at the edges (clipped), repeats, no rows.
+RERANK_ID_CASES = {
+    "world-batch": dict(q=16, c=10, d=32, seed=1),
+    "shard-batch": dict(q=8, c=10, d=128, seed=2),
+    "one-query": dict(q=1, c=10, d=128, seed=3),
+    "one-cand": dict(q=5, c=1, d=8, seed=4),
+    "many-cands": dict(q=3, c=70, d=32, seed=5),
+    "d100": dict(q=4, c=9, d=100, seed=6),
+    "d129": dict(q=3, c=5, d=129, seed=7),
+    "id-edges": dict(q=3, c=12, d=32, seed=8, ids="edges"),
+    "repeated-ids": dict(q=4, c=20, d=16, seed=9, ids="repeated"),
+    "empty": dict(q=3, c=0, d=32, seed=10),
+}
+
+
 def ef_ids(n_slots):
     """Row ids into a table of ``n_slots`` slots: both edges, repeats, and
     ids past either end (they clip)."""
@@ -227,6 +305,13 @@ def cuda():
 def _on(dev, *arrays):
     return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
             for a in arrays]
+
+
+def _unaligned(t, shift):
+    """A copy of ``t`` that starts ``shift`` elements past an allocation's
+    start (off 16-byte alignment)."""
+    flat = torch.empty(t.numel() + shift, dtype=t.dtype, device=t.device)
+    return flat[shift:].view(t.shape).copy_(t)
 
 
 @pytest.mark.cuda
@@ -273,6 +358,32 @@ def test_pq_adc_batched_kernel(cuda, nq, n, m, equal):
                                       equal_codes=equal))
     assert_bits_equal(pq_adc_batched_cuda(codes, luts),
                       pq_adc_batched_ref(codes, luts))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(ADC_ID_CASES))
+def test_pq_adc_batched_kernel_by_id(cuda, case):
+    """Rows by id (+inf where masked) == the plain version, and == the
+    kernel without ids on the gathered rows, masked."""
+    table, luts, ids = _on(cuda, *adc_ids_case(**ADC_ID_CASES[case]))
+    got = pq_adc_batched_cuda(table, luts, ids)
+    assert_bits_equal(got, pq_adc_batched_ref(table, luts, ids))
+    rows = table[ids.clamp(0, len(table) - 1).long()]
+    assert_bits_equal(got, torch.where(ids >= 0,
+                                       pq_adc_batched_cuda(rows, luts),
+                                       torch.inf))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [8, 16, 32, 48])
+@pytest.mark.parametrize("shift", [1, 4, 8])
+def test_pq_adc_batched_kernel_unaligned(cuda, m, shift):
+    """A table off 16-byte alignment (8-, 4- and 1-byte row loads) and
+    LUTs off it (staged without the bulk copy)."""
+    table, luts, ids = _on(cuda, *adc_ids_case(5, 64, m, seed=m + shift))
+    table, luts = _unaligned(table, shift), _unaligned(luts, 1)
+    assert_bits_equal(pq_adc_batched_cuda(table, luts, ids),
+                      pq_adc_batched_ref(table, luts, ids))
 
 
 @pytest.mark.cuda
@@ -401,6 +512,31 @@ def test_rerank_l2_kernel(cuda, q, c, d, dtype):
              else rng.normal(size=(q, c, d))).astype(dtype)
     qt, xt = _on(cuda, queries, cands)
     assert_bits_equal(rerank_l2_cuda(qt, xt), rerank_l2_ref(qt, xt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32])
+@pytest.mark.parametrize("case", sorted(RERANK_ID_CASES) + ["long-rows"])
+def test_rerank_l2_kernel_by_id(cuda, case, dtype):
+    """Rows by id (clipped) == the plain version, and == the kernel
+    without ids on the gathered rows; "long-rows" spans several of the
+    kernel's row tiles (512 bytes)."""
+    kw = RERANK_ID_CASES.get(case, dict(q=3, c=6, d=1100, seed=11))
+    qt, xt, ids = _on(cuda, *rerank_ids_case(dtype=dtype, **kw))
+    got = rerank_l2_cuda(qt, xt, ids)
+    assert_bits_equal(got, rerank_l2_ref(qt, xt, ids))
+    rows = xt[ids.clamp(0, len(xt) - 1).long()]
+    assert_bits_equal(got, rerank_l2_cuda(qt, rows))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", [1, 2, 4, 8])
+def test_rerank_l2_kernel_unaligned(cuda, shift):
+    """A uint8 table off 16-byte alignment: 8-, 4- and 1-byte loads."""
+    qt, xt, ids = _on(cuda, *rerank_ids_case(6, 10, 128, seed=shift))
+    xt = _unaligned(xt, shift)
+    assert_bits_equal(rerank_l2_cuda(qt, xt, ids),
+                      rerank_l2_ref(qt, xt, ids))
 
 
 @pytest.mark.cuda

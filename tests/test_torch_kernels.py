@@ -22,8 +22,9 @@ from repro.core.graph.pq import PQCodebook, encode_pq
 from repro.kernels import dispatch as jdispatch
 from repro.kernels.byteplane.byteplane import byteplane_decode_pallas
 from repro.kernels.byteplane.ref import byteplane_decode_ref as jbyteplane
-from repro.kernels.pq_adc.pq_adc import pq_adc_pallas
+from repro.kernels.pq_adc.pq_adc import pq_adc_batched_pallas, pq_adc_pallas
 from repro.kernels.pq_adc.ref import pq_adc_ref as jpq_adc
+from repro.kernels.rerank_l2.ref import rerank_l2_ref as jrerank_l2
 from repro.kernels.dispatch import KernelConfig as JKernelConfig
 
 from repro_torch.kernels import dispatch
@@ -41,9 +42,11 @@ from repro_torch.kernels.pq_encode.pq_encode import pq_encode_ref
 from repro_torch.kernels.rerank_l2.rerank_l2 import (rerank_l2_cuda,
                                                      rerank_l2_ref)
 
-from test_torch_cuda import (BEAM_CASES, BYTEPLANE_SHAPES, adc_case,
+from test_torch_cuda import (ADC_ID_CASES, BEAM_CASES, BYTEPLANE_SHAPES,
+                             RERANK_ID_CASES, adc_case, adc_ids_case,
                              assert_bits_equal, beam_case, byteplane_case,
-                             ef_ids, ef_slots, single_adc_case)
+                             ef_ids, ef_slots, rerank_ids_case,
+                             single_adc_case)
 
 JREF = JKernelConfig("ref", "ref", "ref", "ref", "ref")
 JPAL = JKernelConfig(*(["pallas-interpret"] * 5))
@@ -63,6 +66,28 @@ def test_pq_adc_batched_matches_reference(nq, n, m):
                                    JPAL)
     np.testing.assert_allclose(got.numpy(), np.asarray(pal), rtol=1e-6,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("case", sorted(ADC_ID_CASES))
+def test_pq_adc_batched_by_id_through_dispatch(case):
+    """dispatch.pq_adc_batched on CPU tensors with ids == the reference on
+    ``codes[clip(ids)]``, masked to +inf where ids < 0: bit for bit against
+    its ``ref``, within the conformance tolerance against the Pallas
+    kernel (a one-hot matmul) in interpret mode."""
+    table, luts, ids = adc_ids_case(**ADC_ID_CASES[case])
+    got = dispatch.pq_adc_batched(T(table), T(luts), ids=T(ids))
+    assert got.shape == ids.shape
+    rows = jnp.asarray(table[np.clip(ids, 0, len(table) - 1)])
+    mask = jnp.asarray(ids) >= 0
+    want = jnp.where(mask, jdispatch.pq_adc_batched(rows, jnp.asarray(luts),
+                                                    JREF), jnp.inf)
+    assert_bits_equal(got, want)
+    if ids.size:    # the Pallas grid needs a row block
+        pal = jnp.where(mask, pq_adc_batched_pallas(
+            rows, jnp.asarray(luts), interpret=True), jnp.inf)
+        np.testing.assert_allclose(got.numpy(), np.asarray(pal), rtol=1e-6,
+                                   atol=1e-5)
+    assert np.isinf(got.numpy()[ids < 0]).all()
 
 
 def test_pq_adc_batched_all_equal_codes():
@@ -235,6 +260,26 @@ def test_rerank_l2_matches_reference(q, c, d, dtype):
                                atol=1e-3)
 
 
+@pytest.mark.parametrize("dtype", ["u8", "f32"])
+@pytest.mark.parametrize("case", sorted(RERANK_ID_CASES))
+def test_rerank_l2_by_id_through_dispatch(case, dtype):
+    """dispatch.rerank_l2 on CPU tensors with ids == the reference oracle
+    on ``table[clip(ids, 0, N - 1)]`` (nothing masked): bit for bit at
+    D <= 32, rtol 1e-6 above (jnp's sum is no left fold there)."""
+    queries, table, ids = rerank_ids_case(
+        dtype=np.uint8 if dtype == "u8" else np.float32,
+        **RERANK_ID_CASES[case])
+    got = dispatch.rerank_l2(T(queries), T(table), ids=T(ids))
+    assert got.shape == ids.shape
+    rows = table[np.clip(ids, 0, len(table) - 1)]
+    want = jrerank_l2(jnp.asarray(queries), jnp.asarray(rows))
+    if queries.shape[1] <= 32:
+        assert_bits_equal(got, want)
+    else:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+    assert_bits_equal(got, rerank_l2_ref(T(queries), T(rows)))
+
+
 def test_rerank_l2_equal_rows_are_zero():
     q = np.random.default_rng(0).normal(size=(4, 32)).astype(np.float32)
     cands = np.repeat(q[:, None, :], 9, axis=1)
@@ -312,7 +357,11 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         pq_adc_batched_cuda(T(codes), T(luts))
     with pytest.raises(ValueError, match="CUDA"):
+        pq_adc_batched_cuda(*map(T, adc_ids_case(2, 5, 8, seed=0)))
+    with pytest.raises(ValueError, match="CUDA"):
         rerank_l2_cuda(T(luts[:, 0]), T(luts))
+    with pytest.raises(ValueError, match="CUDA"):
+        rerank_l2_cuda(*map(T, rerank_ids_case(2, 5, 8, seed=0)))
     with pytest.raises(ValueError, match="CUDA"):
         pq_adc_cuda(T(codes[0]), T(luts[0]))
     packed, base = byteplane_case(4, 8, seed=0)
