@@ -16,7 +16,10 @@ Phases (any fault exits non-zero; there is no CPU fallback):
    the small-world and the shard's shapes, with ragged sizes, empty EF
    lists, all-equal codes, exact distance ties, fully masked rows, empty
    and unaligned byteplane rows, a SIFT and a prop-like 4 MiB chunk, one
-   query's exhaustive single-LUT ADC over the shard's codes, the ADC and
+   query's exhaustive single-LUT ADC over the shard's codes and the
+   single-LUT kernel's sweep (n from 1 to 2^20 + 3, M from 1 to 64, K in
+   {16, 256}, uint8 and int32 codes, tables 1, 4 and 8 bytes past an
+   aligned address, codes all 0, all K - 1 and all equal), the ADC and
    the re-rank reading their rows by id (ids at and past the table's
    edges, repeats, masked rows, the entry's E = 1, C > 32, D not a
    multiple of 16, unaligned tables) and without ids, and the
@@ -60,8 +63,10 @@ Phases (any fault exits non-zero; there is no CPU fallback):
    compositions (torch gather + the kernel without ids) on the same id
    sets, beam_step's time by survivors, the
    load's old composition (decode_at_torch + one byteplane launch per
-   chunk) on the segment huffman_decode is timed on, then the contract's
-   last lines.
+   chunk) on the segment huffman_decode is timed on, the single-LUT
+   kernel on all-equal codes of the shard's scan (its LUT reads
+   conflict-free) beside the time of reading the same 1 GB of codes once,
+   then the contract's last lines.
 """
 from __future__ import annotations
 
@@ -495,6 +500,7 @@ class Parity:
         self.compare("pq_adc", "all-equal codes",
                      torch.full((129, 32), 3, dtype=torch.uint8,
                                 device=self.dev), self.rand(32, 256))
+        self.pq_adc_cases()
         # huffman_decode: one table and plane tables over the repo's row
         # widths, 1-bit and 16-bit codes, a 25-byte row; records past 2 GiB
         for dist, v, planes in (
@@ -508,6 +514,44 @@ class Parity:
         self.huffman_far()
         log(f"parity small: {dict(self.cases)} cases bit-exact "
             f"({time.time() - t0:.1f} s)")
+
+    def pq_adc_cases(self):
+        """The single-LUT kernel over every n in {1, 31, 255, 257, 4099,
+        2^20 + 3}, M in {1, 7, 8, 12, 16, 32, 64}, K in {16, 256}, uint8
+        and int32 codes (uint8 rows of M = 32 take the lagged path, the
+        others the row path); tables 1, 4 and 8 bytes past an aligned
+        address, the LUT aligned or 4 bytes past it; codes all 0, all K - 1
+        and all equal."""
+        torch = self.torch
+        for n in (1, 31, 255, 257, 4099, (1 << 20) + 3):
+            for m in (1, 7, 8, 12, 16, 32, 64):
+                for k in (16, 256):
+                    lut = self.rand(m, k)
+                    for dt in (torch.uint8, torch.int32):
+                        self.compare("pq_adc", f"{n}x{m} K={k} {dt}",
+                                     self.randint(k, n, m, dtype=dt), lut)
+        for m in (8, 12, 16, 32, 64):
+            for dt, shift in ((torch.uint8, 1), (torch.uint8, 4),
+                              (torch.uint8, 8), (torch.int32, 4),
+                              (torch.int32, 8)):
+                codes = self.randint(256, 4099, m, dtype=dt)
+                codes = self.unaligned(codes, shift // codes.element_size())
+                check(codes.data_ptr() % 16 == shift % 16,
+                      "unaligned pq_adc case")
+                for lut_shift in (0, 1):
+                    self.compare("pq_adc", f"M={m} {dt} table +{shift} B, "
+                                 f"LUT +{4 * lut_shift} B", codes,
+                                 self.unaligned(self.rand(m, 256), lut_shift))
+        for m, k in ((32, 256), (32, 16), (8, 256), (64, 16)):
+            lut = self.rand(m, k)
+            for fill in (0, k - 1, 3):
+                for dt in (torch.uint8, torch.int32):
+                    out = self.compare("pq_adc", f"M={m} K={k} codes all "
+                                       f"{fill} {dt}", torch.full(
+                                           (4099, m), fill, dtype=dt,
+                                           device=self.dev), lut)[0]
+                    check(bool((out == out[0]).all()),
+                          "pq_adc: equal codes must give equal sums")
 
     def huffman_data(self, dist, n, v, planes=1):
         """[n, v] uint8 rows of ``dist`` on the card and their Huffman
@@ -1490,6 +1534,45 @@ def load_yardstick(torch, parity) -> None:
     log("load yardstick: " + "; ".join(parts))
 
 
+def pq_adc_yardsticks(torch, parity) -> None:
+    """Beside the shard's scan (one query's LUT against every code): the
+    same kernel on all-equal codes of the same shape, whose LUT reads are
+    conflict-free in any layout; the time of reading the same codes once
+    (a torch sum of them viewed as int64: a yardstick of the card's read
+    rate, not a library call for ADC); the byte bound, and the bound of
+    the n*M LUT reads from shared memory at 32 a clock an SM."""
+    kern = parity.ops["pq_adc"][0]
+    codes, lut = parity.shard_in["pq_adc"]
+    n, m = codes.shape
+    equal = torch.full_like(codes, 3)
+    out = kern(equal, lut)
+    check(bool((out == out[0]).all()), "pq_adc: equal codes, unequal sums")
+    words = codes.view(torch.int64)
+    ms = {"kernel": cuda_ms(torch, lambda: kern(codes, lut)),
+          "equal": cuda_ms(torch, lambda: kern(equal, lut)),
+          "stream": cuda_ms(torch, lambda: words.sum())}
+    del equal, out
+    nbytes = bounds(torch, "pq_adc", (codes, lut))[0]
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    t_lut = n * m / (sms * 32 * mhz * 1e6) * 1e3
+    log(f"pq_adc yardsticks ({list(codes.shape)} {codes.dtype}, one LUT "
+        f"{list(lut.shape)}): kernel on the shard's codes {ms['kernel']:.4f}"
+        f" ms; on all-equal codes {ms['equal']:.4f} ms (LUT reads "
+        f"conflict-free); stream of the {words.numel() * 8 / 1e9:.2f} GB of "
+        f"codes once (torch int64 sum, a read-rate yardstick, not an ADC "
+        f"library call) {ms['stream']:.4f} ms = "
+        f"{words.numel() * 8 / ms['stream'] / 1e9:.3f} TB/s, at which the "
+        f"kernel's {nbytes / 1e9:.3f} GB take "
+        f"{nbytes / (words.numel() * 8) * ms['stream']:.4f} ms; bounds: bytes "
+        f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({nbytes / 1e6:.1f} MB), "
+        f"LUT reads {t_lut:.4f} ms ({n * m / 1e9:.2f}e9 reads, {sms} SMs x "
+        f"32 a clock at {mhz:.0f} MHz)")
+
+
 def time_kernels(torch, parity) -> dict:
     """Per-kernel device times on the shard's inputs, taken before the
     storage phase; then the parity inputs, which hold the shard's tables,
@@ -1498,6 +1581,7 @@ def time_kernels(torch, parity) -> dict:
     old_compositions(torch, parity)
     beam_step_regimes(torch, parity)
     load_yardstick(torch, parity)
+    pq_adc_yardsticks(torch, parity)
     times = {}
     for op, args in parity.shard_in.items():
         kern, plain = parity.ops[op]

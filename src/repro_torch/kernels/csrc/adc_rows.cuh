@@ -1,5 +1,5 @@
-// adc_rows.cuh: what beam_step.cu and pq_adc_batched.cu share to score PQ
-// code rows read by id against a query's LUT in shared memory.
+// adc_rows.cuh: what beam_step.cu, pq_adc_batched.cu and pq_adc.cu share
+// to score PQ code rows against a query's LUT in shared memory.
 //
 // - lut_copy_start / lut_copy_wait: one thread starts a bulk copy
 //   (cp.async.bulk, the TMA's non-tensor form) of the LUT into shared

@@ -53,12 +53,20 @@ def adc_case(nq, n, m, seed, equal_codes=False):
     return codes, luts
 
 
-def single_adc_case(n, m, seed, dtype=np.uint8, equal_codes=False):
+def single_adc_case(n, m, seed, dtype=np.uint8, k=256, fill=None):
+    """[n, m] codes below ``k`` and an [m, k] LUT; every code ``fill``
+    where given."""
     rng = np.random.default_rng(seed)
-    codes = rng.integers(0, 256, (n, m)).astype(dtype)
-    if equal_codes:
-        codes[:] = 3
-    return codes, rng.normal(size=(m, 256)).astype(np.float32)
+    codes = rng.integers(0, k, (n, m)).astype(dtype)
+    if fill is not None:
+        codes[:] = fill
+    return codes, rng.normal(size=(m, k)).astype(np.float32)
+
+
+# The single-LUT kernel's sweep: one row up to 2^20 + 3 (ragged warps,
+# blocks and grid strides), M from 1 to 64 (rows of 1 to 64 bytes).
+SINGLE_ADC_N = (1, 31, 255, 257, 4099, (1 << 20) + 3)
+SINGLE_ADC_M = (1, 7, 8, 12, 16, 32, 64)
 
 
 def byteplane_case(n, v, seed):
@@ -394,8 +402,55 @@ def test_pq_adc_batched_kernel_unaligned(cuda, m, shift):
                                              (129, 32, np.uint8, True)])
 def test_pq_adc_kernel(cuda, n, m, dtype, equal):
     codes, lut = _on(cuda, *single_adc_case(n, m, seed=n + m, dtype=dtype,
-                                            equal_codes=equal))
+                                            fill=3 if equal else None))
     assert_bits_equal(pq_adc_cuda(codes, lut), pq_adc_ref(codes, lut))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.uint8, np.int32])
+@pytest.mark.parametrize("k", [16, 256])
+@pytest.mark.parametrize("m", SINGLE_ADC_M)
+def test_pq_adc_kernel_sweep(cuda, m, k, dtype):
+    """Every n of the sweep: uint8 rows of M = 32 take the lagged path,
+    the others the row path (16-, 8-, 4- or 1-byte loads, or none)."""
+    for n in SINGLE_ADC_N:
+        codes, lut = _on(cuda, *single_adc_case(n, m, seed=n + m + k,
+                                                dtype=dtype, k=k))
+        assert_bits_equal(pq_adc_cuda(codes, lut), pq_adc_ref(codes, lut))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lut_shift", [0, 1])
+@pytest.mark.parametrize("dtype,shift", [(np.uint8, 1), (np.uint8, 4),
+                                         (np.uint8, 8), (np.int32, 4),
+                                         (np.int32, 8)])
+@pytest.mark.parametrize("m", [8, 12, 16, 32, 64])
+def test_pq_adc_kernel_unaligned(cuda, m, dtype, shift, lut_shift):
+    """Codes that start ``shift`` bytes past an aligned address (narrower
+    row loads, no lagged path), with the LUT aligned or 4 bytes past it
+    (staged without the bulk copy)."""
+    codes, lut = _on(cuda, *single_adc_case(4099, m, seed=m + shift,
+                                            dtype=dtype))
+    codes = _unaligned(codes, shift // codes.element_size())
+    lut = _unaligned(lut, lut_shift)
+    assert codes.data_ptr() % 16 == shift % 16
+    assert_bits_equal(pq_adc_cuda(codes, lut), pq_adc_ref(codes, lut))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fill", ["zero", "top", "equal"])
+@pytest.mark.parametrize("m,k", [(32, 256), (32, 16), (8, 256), (64, 16)])
+def test_pq_adc_kernel_pinned_codes(cuda, m, k, fill):
+    """Codes all 0, all K - 1 (the LUT's last column) or all equal: every
+    row the same sum."""
+    value = {"zero": 0, "top": k - 1, "equal": 3}[fill]
+    for dtype in (np.uint8, np.int32):
+        codes, lut = _on(cuda, *single_adc_case(4099, m, seed=m + k,
+                                                dtype=dtype, k=k,
+                                                fill=value))
+        got = pq_adc_cuda(codes, lut)
+        assert_bits_equal(got, pq_adc_ref(codes, lut))
+        assert bool((got == got[0]).all())
 
 
 @pytest.mark.cuda

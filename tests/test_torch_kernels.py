@@ -99,12 +99,24 @@ def test_pq_adc_batched_all_equal_codes():
 
 
 @pytest.mark.parametrize("dtype", [np.uint8, np.int32])
-@pytest.mark.parametrize("n,m", [(1, 8), (1024, 8), (4096, 8), (300, 32),
-                                 (7, 1)])
-def test_pq_adc_matches_reference(n, m, dtype):
-    codes, lut = single_adc_case(n, m, seed=n + m, dtype=dtype)
+@pytest.mark.parametrize("n,m,k", [
+    *(pytest.param(n, m, 256, id=f"{n}-{m}")
+      for n, m in [(1, 8), (1024, 8), (4096, 8), (300, 32), (7, 1)]),
+    *(pytest.param(n, m, k, id=f"{n}-{m}-k{k}")
+      for n, m, k in [(300, 64, 256), (257, 64, 16), (255, 32, 16),
+                      (31, 12, 16), (4099, 7, 16)])])
+def test_pq_adc_matches_reference(n, m, k, dtype):
+    """Bit for bit against the reference's oracle up to M = 32, where
+    jnp's sum is a left fold; at M = 64 XLA sums in another order, so there
+    the conformance tolerance holds, as against the Pallas kernel."""
+    codes, lut = single_adc_case(n, m, seed=n + m, dtype=dtype, k=k)
     got = pq_adc_ref(T(codes), T(lut))
-    assert_bits_equal(got, jpq_adc(jnp.asarray(codes), jnp.asarray(lut)))
+    want = jpq_adc(jnp.asarray(codes), jnp.asarray(lut))
+    if m <= 32:
+        assert_bits_equal(got, want)
+    else:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                                   atol=1e-5)
     assert_bits_equal(dispatch.pq_adc(T(codes), T(lut)), got)
     pal = pq_adc_pallas(jnp.asarray(codes), jnp.asarray(lut), interpret=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(pal), rtol=1e-6,
@@ -112,7 +124,7 @@ def test_pq_adc_matches_reference(n, m, dtype):
 
 
 def test_pq_adc_all_equal_codes():
-    codes, lut = single_adc_case(129, 32, seed=5, equal_codes=True)
+    codes, lut = single_adc_case(129, 32, seed=5, fill=3)
     got = pq_adc_ref(T(codes), T(lut)).numpy()
     assert len(set(got.tolist())) == 1
     assert_bits_equal(got, jpq_adc(jnp.asarray(codes), jnp.asarray(lut)))

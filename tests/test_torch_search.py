@@ -18,7 +18,9 @@ import jax.numpy as jnp
 import torch
 
 from repro.core.graph.pq import build_lut_jnp
+from repro.core.index import build_device_index
 from repro.core.search import beam as ref_beam
+from repro.data.synthetic import make_queries, make_vector_dataset
 from repro.kernels.dispatch import KernelConfig as JKernelConfig
 
 from repro_torch.core.index import device_index_from_numpy, recall_at_k
@@ -83,6 +85,42 @@ def test_search_matches_reference(world, jax_runs, nq, beam_step, bits):
                                             visited_hash_bits=bits),
                  device="cpu")
     assert_same_search(got, jax_runs(nq, visited_hash_bits=bits))
+
+
+@pytest.fixture(scope="module", params=["sift-like", "prop-like"])
+def world128(request):
+    """A d = 128 world (n=1200, pq_m=16, the shard's width) built by the
+    reference, which hands its vectors over as float32; for the sift-like
+    world the port also searches the same vectors as uint8, the shard's
+    dtype -> (reference index, port indexes by vector dtype, queries, a
+    cache of reference runs)."""
+    vecs = make_vector_dataset(request.param, n=1200, dim=128, seed=0)
+    ref_idx, _, _ = build_device_index(vecs, r=24, l_build=48, pq_m=16,
+                                       seed=0)
+    arrays = {k: np.asarray(v) for k, v in ref_idx._asdict().items()}
+    ports = {"float32": device_index_from_numpy(arrays, "cpu")}
+    if vecs.dtype == np.uint8:
+        ports["uint8"] = device_index_from_numpy({**arrays, "vectors": vecs},
+                                                 "cpu")
+    queries = make_queries(request.param, 32, 128).astype(np.float32)
+    return ref_idx, ports, queries, {}
+
+
+@pytest.mark.parametrize("bits", [0, 10], ids=["dense", "hashed"])
+@pytest.mark.parametrize("beam_step", ["auto", "off"],
+                         ids=["fused", "unfused"])
+@pytest.mark.parametrize("nq", [7, 32])
+def test_search_matches_reference_d128(world128, nq, beam_step, bits):
+    ref_idx, ports, queries, runs = world128
+    if (nq, bits) not in runs:
+        p = ref_beam.SearchParams(**{**BASE, "visited_hash_bits": bits},
+                                  kernels=JREF)
+        runs[nq, bits] = ref_beam.search(ref_idx, queries[:nq], p)
+    for index in ports.values():
+        got = search(index, queries[:nq], _port(beam_step,
+                                                visited_hash_bits=bits),
+                     device="cpu")
+        assert_same_search(got, runs[nq, bits])
 
 
 def test_raw_adjacency_and_tombstones_match_reference(world):
