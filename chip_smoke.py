@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of ``repro_torch`` (the PyTorch + CUDA port) on one
-NVIDIA GPU: the paper's §3.4 query path and §3.3 storage path end to end,
-at one shard of the repo's SIFT1B-scale deployment
+NVIDIA GPU: the paper's §3.4 query path, its serving tier, the §3.3
+storage path and the §3.5 live update path end to end, at one shard of the repo's SIFT1B-scale deployment
 (``configs/decouplevs_ann.py``: 32 shards of ~31.25M 128-dim uint8 vectors,
 R=128, PQ M=32, 512 MiB segments of 4 MiB chunks).
 
@@ -41,6 +41,17 @@ Phases (any fault exits non-zero; there is no CPU fallback):
    equal a recompute. Launch counts are read around each path. A profile
    of each search fails the run if a torch row gather still reads the
    shard's PQ codes or vectors (every kernel reads its rows by id).
+4c. serve — the serving tier (serve/ann.py) on the resident shard:
+   BatchedSearcher with buckets (8, 32, 1024), fetch traces replayed
+   through an LRU of 0.1% of n x dim bytes, serving the 1,024 queries, the
+   first 1,000 (a padded bucket) and 37 (ragged buckets). Every row equals
+   phase 4's fused search bit for bit and the 1,024-query serve launches
+   exactly one fused search's kernels; search_vmapped of 8 queries equals
+   search. Prints the I/O-model report (graph/vector I/Os, cache hits,
+   modeled mean and p99 latency), the wall, QPS, the replay's share of
+   the wall and the card's busy share of a profiled serve. Then the
+   frozen sharded branch: the small world in 4 range shards, a router at
+   route_frac 0.5, with and without a failed shard, card == CPU.
 4b. storage — the §3.3 path on the same shard: its vectors sealed into the
    decoupled vector store ("auto": the sampled-entropy XOR-delta test per
    chunk, one Huffman table per segment), its graph sealed into the
@@ -54,6 +65,19 @@ Phases (any fault exits non-zero; there is no CPU fallback):
    is one huffman_decode launch per segment (decode and XOR-delta
    inverse in one kernel; byteplane launches none), bit-exact, with its
    launches counted; one more load is profiled for the card's busy share.
+4d. live — the §3.5 update path after the shard is freed: a StreamingIndex
+   over --live-n (2^24) uint8 vectors drawn like the shard's, the random
+   R=128 graph at that n and the shard's codebook, served through
+   BatchedSearcher (256 of phase 4's queries), then 64 top-1 hits deleted
+   and 64 fresh vectors inserted (served through the memtable lane: one
+   rerank_l2 launch by id over the 64 rows), the live path's kernels on
+   the live view's tensors against their plain versions and the memtable
+   side-scan on the card against the CPU's, a merge, and a last serve
+   (version + 1, ids equal StreamingIndex.search_batch's). Prints each
+   serve's launches, the merge's seconds and MergeStats, and the index's
+   host and card bytes a vertex at its build's and its merge's peaks
+   with the largest n the card holds (the cut is printed as
+   ``reduced:``).
 5. report — per-kernel times at the shard's shapes (CUDA events, median;
    taken before phase 4b, so the storage phase does not hold the shard's
    tables twice; the kernels that read rows by id cycle through fresh id
@@ -72,15 +96,20 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 SHARD_N = 31_250_000            # 1B vectors over 32 data shards
+LIVE_N = 1 << 24                # phase 4d's live index (see --live-n)
 GOLDEN_RECALL_AT_10 = 0.971875  # the reference suite's pinned small world
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12          # H100 SXM, fp32 outside the tensor cores
@@ -118,6 +147,9 @@ def main() -> int:
                     help="prop-like store size (vectors); below 31,250,000 "
                          "is a cut")
     ap.add_argument("--queries", type=int, default=1024)
+    ap.add_argument("--live-n", type=int, default=LIVE_N,
+                    help="live index size (vectors, phase 4d); below "
+                         "31,250,000 is a cut")
     args = ap.parse_args()
 
     import torch
@@ -156,10 +188,12 @@ def main() -> int:
     shard.verify_slots()
     parity.run_shard(shard)
     launches = shard.search()
+    add_launches(launches, Serve(torch, shard, args).run())   # 4c. serve
     times = time_kernels(torch, parity)                    # 5. report: times
     storage = Storage(torch, shard, args)                  # 4b. storage
     launches.update(storage.run())
     launches["pq_encode"] = shard.build_launches["pq_encode"]
+    add_launches(launches, Live(torch, shard, parity, args).run())  # 4d
     kernels = report(parity, launches, times)              # 5. report
 
     log(smi)
@@ -558,7 +592,6 @@ class Parity:
         table(s): "skewed", "uniform", "prop-like" (fp32 rows), "constant"
         (one symbol: 1-bit codes) or "long-codes" (a table whose rarest
         symbols take 16 bits, drawn uniformly so that they occur)."""
-        import numpy as np
         from repro_torch.core.codec import huffman
         from repro_torch.data.synthetic import prop_like_torch
         torch = self.torch
@@ -785,7 +818,6 @@ class Parity:
 
 # ------------------------------------------------------------- small world
 def small_world(torch, seed: int) -> None:
-    import numpy as np
     from repro_torch.core.index import (build_device_index, recall_at_k,
                                         verify_index_slots)
     from repro_torch.core.search.beam import DeviceIndex, SearchParams, search
@@ -830,6 +862,17 @@ def small_world(torch, seed: int) -> None:
 
 
 # ------------------------------------------------------------------- shard
+def random_graph_rows(torch, n, r, seed, a, b, dev, chunk):
+    """Rows a..b (within one chunk) of the seeded random r-regular graph on
+    n vertices, each list sorted, distinct and without its own vertex."""
+    g = torch.Generator(device=dev).manual_seed(seed * 1_000_003 + a // chunk)
+    u = torch.randint(0, n - r, (b - a, r), generator=g,
+                      device=dev).sort(1).values
+    v = u + torch.arange(r, device=dev)
+    rows = torch.arange(a, b, device=dev)[:, None]
+    return v + (v >= rows).long()
+
+
 class Shard:
     """One data shard of the SIFT1B deployment, resident on the card."""
 
@@ -856,16 +899,10 @@ class Shard:
                 f"(set by --n)")
 
     def adjacency(self, a: int, b: int):
-        """Rows a..b of the seeded random R-regular graph, each list sorted,
-        distinct and without its own vertex (Vamana's start graph)."""
-        torch = self.torch
-        g = torch.Generator(device=self.dev).manual_seed(
-            self.seed * 1_000_003 + a // self.CHUNK)
-        u = torch.randint(0, self.n - self.R, (b - a, self.R), generator=g,
-                          device=self.dev).sort(1).values
-        v = u + torch.arange(self.R, device=self.dev)
-        rows = torch.arange(a, b, device=self.dev)[:, None]
-        return v + (v >= rows).long()
+        """Rows a..b of the seeded random R-regular graph (Vamana's start
+        graph)."""
+        return random_graph_rows(self.torch, self.n, self.R, self.seed, a, b,
+                                 self.dev, self.CHUNK)
 
     def build(self):
         from repro_torch.core.codec.elias_fano import (encode_slots_torch,
@@ -887,20 +924,12 @@ class Shard:
         cb = train_pq(sample.cpu().numpy(), m=self.M, seed=self.seed)
         t_train = time.time() - t1
         centroids = torch.from_numpy(cb.centroids).to(dev)
+        self.centroids = centroids        # phase 4d reuses the codebook
         t1 = time.time()
         codes = encode_pq_torch(vectors, centroids)
         torch.cuda.synchronize()
         t_enc = time.time() - t1
-        mean = torch.zeros(self.D, dtype=torch.float64, device=dev)
-        for a in range(0, n, self.CHUNK):
-            mean += vectors[a:a + self.CHUNK].double().sum(0)
-        mean = (mean / n).float()
-        best = []
-        for a in range(0, n, self.CHUNK):
-            d = ((vectors[a:a + self.CHUNK].float() - mean) ** 2).sum(1)
-            v, i = d.min(0)
-            best.append((float(v), a + int(i)))
-        medoid = min(best)[1]
+        medoid = medoid_of(torch, vectors, self.CHUNK)
         t1 = time.time()
         words = slot_layout(self.R, n)[3]
         slots = torch.empty((n, words), dtype=torch.int32, device=dev)
@@ -1004,6 +1033,7 @@ class Shard:
                      / exact64.clamp_min(1)).max())
         check(rel < 1e-6, f"distances vs float64 recompute: rel {rel}")
         self.result = (ids, dists)
+        self.fused_launches = fused
         check(fused["beam_step"] > 0 and off["beam_step"] == 0,
               "beam_step launches")
         check(off["pq_adc_batched"] > fused["pq_adc_batched"] > 0,
@@ -1299,6 +1329,461 @@ class Storage:
             vs.get(torch.arange(n, device=self.dev), account=False)
             prof_wall = sync_time(torch, t0)
         device_busy(torch, prof, "prop-like load", wall, prof_wall)
+
+
+# ------------------------------------------------------------------- serve
+def add_launches(total: dict, more: dict) -> None:
+    for name, n in more.items():
+        total[name] = total.get(name, 0) + n
+
+
+def report_line(rep) -> str:
+    """The I/O-model metrics of one served batch."""
+    looked = rep.cache_hits + rep.graph_ios
+    return (f"graph_ios {rep.graph_ios}, vector_ios {rep.vector_ios}, "
+            f"cache hits {rep.cache_hits} ({100 * rep.cache_hits / max(1, looked):.2f}% "
+            f"of list fetches), io_rounds {rep.io_rounds}, rerank batches "
+            f"{rep.rerank_batches}, modeled_latency_us "
+            f"{rep.modeled_latency_us}, modeled_p99_us {rep.modeled_p99_us}")
+
+
+class Serve:
+    """Phase 4c: the serving tier (serve/ann.py) on the resident shard,
+    then its frozen sharded branch on the small world, card against CPU."""
+
+    def __init__(self, torch, shard, args):
+        self.torch, self.shard, self.seed = torch, shard, args.seed
+
+    def run(self) -> dict:
+        launches = self.shard_serve()
+        add_launches(launches, self.sharded())
+        return launches
+
+    def searcher(self, account_io=True):
+        from repro_torch.configs.decouplevs_ann import CONFIG
+        from repro_torch.serve.ann import BatchedSearcher, ServeConfig
+        shard = self.shard
+        cache = int(CONFIG.cache_ratio * shard.n * shard.D)
+        return BatchedSearcher(shard.index, shard.p, ServeConfig(
+            buckets=(8, 32, 1024), account_io=account_io, cache_bytes=cache))
+
+    def shard_serve(self) -> dict:
+        from repro_torch.core.search.beam import search_vmapped
+        from repro_torch.kernels import build
+        torch, shard = self.torch, self.shard
+        q = shard.queries.cpu().numpy()
+        want_ids = shard.result[0].cpu().numpy()
+        want_d = shard.result[1].cpu().view(torch.int32).numpy()
+        searcher = self.searcher()
+        # the same batches without I/O accounting: the difference of the
+        # walls is what the accounting (trace copies + replay) costs
+        bare = self.searcher(account_io=False)
+        lines = []
+        for nq, plan in ((shard.nq, "one bucket"), (1000, "padded"),
+                         (37, "ragged")):
+            build.reset_launches()
+            t0 = sync_time(torch)
+            ids, dists, rep = searcher.search(q[:nq])
+            wall = sync_time(torch, t0)
+            launched = dict(build.LAUNCHES)
+            check(np.array_equal(ids, want_ids[:nq])
+                  and np.array_equal(dists.view(np.int32), want_d[:nq]),
+                  f"serve of {nq} queries != phase 4's fused search")
+            t0 = sync_time(torch)
+            ids, dists, _ = bare.search(q[:nq])
+            wall_bare = sync_time(torch, t0)
+            check(np.array_equal(ids, want_ids[:nq])
+                  and np.array_equal(dists.view(np.int32), want_d[:nq]),
+                  f"serve of {nq} queries without accounting != phase 4's")
+            replay = wall - wall_bare
+            if nq == shard.nq:
+                check(launched == shard.fused_launches,
+                      f"the serving tier changed the kernel launches: "
+                      f"{launched} != {shard.fused_launches}")
+                full = (launched, wall)
+            lines.append(f"{nq} queries ({plan}: buckets {rep.buckets}, "
+                         f"{rep.n_padded} pad rows) wall {wall:.3f} s, QPS "
+                         f"{nq / wall:.1f}, without accounting "
+                         f"{wall_bare:.3f} s, so the fetch-trace replay "
+                         f"(trace copies + LRU replay) takes {replay:.3f} s "
+                         f"({100 * replay / wall:.1f}% of the wall); "
+                         f"{report_line(rep)}")
+        launched, wall = full
+        log(f"serve: BatchedSearcher on the {shard.n}-vector shard, "
+            f"buckets (8, 32, 1024), cache {searcher.cfg.cache_bytes} B "
+            f"(cache_ratio 0.1% of n x dim); every row == phase 4's fused "
+            f"search bit for bit (ids, dists); " + "; ".join(lines))
+        log(f"serve launches (1,024 queries) == one fused search's: "
+            f"{launched}")
+        t0 = sync_time(torch)
+        ids, _, _ = search_vmapped(shard.index, shard.queries[:8], shard.p)
+        t_vm = sync_time(torch, t0)
+        check(bits_equal(torch, ids, shard.result[0][:8]),
+              "search_vmapped ids != search's")
+        log(f"search_vmapped: 8 queries one at a time in {t_vm:.3f} s, ids "
+            f"== search's")
+        self.profile(searcher, q, wall)
+        return launched
+
+    def profile(self, searcher, q, wall):
+        """The card's busy share of one more served batch."""
+        from torch.profiler import ProfilerActivity, profile
+        torch = self.torch
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = sync_time(torch)
+            searcher.search(q)
+            prof_wall = sync_time(torch, t0)
+        device_busy(torch, prof, "serve of 1,024 queries", wall, prof_wall)
+
+    def sharded(self) -> dict:
+        """The frozen sharded branch: the small world (n=1200) in 4 range
+        shards, a router at route_frac 0.5 and one failed shard; the card
+        serves what the CPU serves."""
+        from repro_torch.core.distributed.sharded_index import (
+            ShardedIndex, ShardRouter, build_router, build_sharded_index)
+        from repro_torch.core.search.beam import SearchParams
+        from repro_torch.data.synthetic import (make_queries,
+                                                make_vector_dataset)
+        from repro_torch.kernels import build
+        from repro_torch.serve.ann import BatchedSearcher, ServeConfig
+        torch, dev = self.torch, self.shard.dev
+        t0 = time.time()
+        vecs = make_vector_dataset("prop-like", n=1200, dim=32,
+                                   seed=self.seed).astype(np.float32)
+        on_cpu, per = build_sharded_index(vecs, 4, r=24, l_build=48, pq_m=8,
+                                          seed=self.seed, device="cpu")
+        on_card = ShardedIndex(*(t.to(dev) for t in on_cpu))
+        router = build_router(on_cpu, c=4, seed=self.seed)
+        queries = make_queries("prop-like", 32, 32).astype(np.float32)
+        p = SearchParams(l_size=48, beam_width=4, k=10, rerank_batch=10,
+                         r_max=24, universe=per, max_iters=128)
+        cfg = ServeConfig(buckets=(8, 32), route_frac=0.5,
+                          cache_bytes=1 << 16)
+        card = BatchedSearcher(on_card, p, cfg, shard_size=per,
+                               router=ShardRouter(router.centroids.to(dev)))
+        cpu = BatchedSearcher(on_cpu, p, cfg, shard_size=per, router=router,
+                              device="cpu")
+        build.reset_launches()
+        parts = []
+        for failed in (None, [1]):
+            got = card.search(queries, failed_shards=failed)
+            want = cpu.search(queries, failed_shards=failed)
+            check(np.array_equal(got[0], want[0])
+                  and np.array_equal(got[1].view(np.int32),
+                                     want[1].view(np.int32)),
+                  f"sharded serve (failed {failed}): card != CPU")
+            for f in ("graph_ios", "vector_ios", "cache_hits", "routed_rows",
+                      "io_rounds", "modeled_latency_us", "failed_shards"):
+                check(getattr(got[2], f) == getattr(want[2], f),
+                      f"sharded serve (failed {failed}): report.{f}")
+            parts.append(f"failed {failed}: fan-out "
+                         f"{got[2].fanout_frac:.3f}, {report_line(got[2])}")
+        launched = dict(build.LAUNCHES)
+        for name in ("beam_step", "ef_decode", "pq_adc_batched", "rerank_l2"):
+            check(launched[name] > 0, f"sharded serve launched no {name}")
+        log(f"serve (sharded): small world n=1200 in 4 range shards of "
+            f"{per}, router 4 centroids a shard, route_frac 0.5; card == "
+            f"CPU bit for bit (ids, dists, report) for "
+            + "; ".join(parts) + f"; launches {launched}; "
+            f"{time.time() - t0:.1f} s")
+        return launched
+
+
+# -------------------------------------------------------------------- live
+def host_rss() -> int:
+    """This process's resident host memory, in bytes."""
+    with open("/proc/self/status") as f:
+        for ln in f:
+            if ln.startswith("VmRSS:"):
+                return int(ln.split()[1]) * 1024
+    return 0
+
+
+def host_ram() -> int:
+    """The host memory this process may use: the cgroup's limit where one
+    is set, else the machine's."""
+    phys = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+    cap = Path("/sys/fs/cgroup/memory.max")
+    if cap.exists() and cap.read_text().strip().isdigit():
+        return min(phys, int(cap.read_text()))
+    return phys
+
+
+class PeakRSS:
+    """The peak of ``host_rss`` over a ``with`` block, sampled every
+    20 ms by a thread that the block's end stops."""
+
+    def __enter__(self):
+        self.base = self.peak = host_rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _sample(self):
+        while not self._stop.wait(0.02):
+            self.peak = max(self.peak, host_rss())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, host_rss())
+
+
+def medoid_of(torch, vectors, chunk: int) -> int:
+    """The row nearest the mean of ``vectors`` (uint8 rows, read in
+    chunks so the float temporaries stay small)."""
+    n, dim = vectors.shape
+    mean = torch.zeros(dim, dtype=torch.float64, device=vectors.device)
+    for a in range(0, n, chunk):
+        mean += vectors[a:a + chunk].double().sum(0)
+    mean = (mean / n).float()
+    best = []
+    for a in range(0, n, chunk):
+        d = ((vectors[a:a + chunk].float() - mean) ** 2).sum(1)
+        v, i = d.min(0)
+        best.append((float(v), a + int(i)))
+    return min(best)[1]
+
+
+class Live:
+    """Phase 4d: the §3.5 update path on the card — a StreamingIndex over
+    ``--live-n`` sift-like uint8 vectors (the shard's distribution and
+    record width: same seed) in the decoupled vector store, the random
+    R=128 graph at that n and the shard's PQ codebook, served through
+    BatchedSearcher before and after deletes + inserts, and after a merge.
+    The build measures the index's host and card bytes a vertex, which
+    bound n (printed beside the ``reduced:`` line)."""
+
+    def __init__(self, torch, shard, parity, args):
+        self.torch, self.seed, self.dev = torch, args.seed, shard.dev
+        self.n, self.parity = args.live_n, parity
+        self.R, self.D = shard.R, shard.D
+        self.centroids, self.queries = shard.centroids, shard.queries
+
+    def build(self):
+        from repro_torch.configs.decouplevs_ann import CONFIG
+        from repro_torch.core.graph.pq import PQCodebook, encode_pq_torch
+        from repro_torch.core.storage.vector_store import (
+            DecoupledVectorStore, StoreConfig)
+        from repro_torch.core.update.fresh import StreamingIndex, UpdateConfig
+        from repro_torch.data.synthetic import sift_like_torch
+        torch, dev, n = self.torch, self.dev, self.n
+        t0 = time.time()
+        x = sift_like_torch(n, self.D, self.seed, dev)
+        vs = DecoupledVectorStore(StoreConfig(
+            dim=self.D, dtype=torch.uint8, chunk_bytes=CONFIG.chunk_bytes,
+            segment_capacity=CONFIG.segment_bytes // self.D, device=dev))
+        vs.append(torch.arange(n, device=dev), x)
+        vs.seal_active()
+        cb = PQCodebook(self.centroids.cpu().numpy(), self.D)
+        codes = encode_pq_torch(x, self.centroids).cpu().numpy()
+        medoid = medoid_of(torch, x, 1 << 20)
+        del x
+        torch.cuda.synchronize()
+        t_data = time.time() - t0
+        # from here on, what the index itself takes: its host graph, its
+        # index store and its device view
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        card0 = torch.cuda.memory_allocated()
+        t0 = time.time()
+        with PeakRSS() as rss:
+            chunk = 1 << 20
+            adj = np.empty((n, self.R), np.int64)
+            for a in range(0, n, chunk):
+                b = min(a + chunk, n)
+                adj[a:b] = random_graph_rows(torch, n, self.R, self.seed, a,
+                                             b, dev, chunk).cpu().numpy()
+            self.idx = StreamingIndex(list(adj), medoid, vs, codes, cb,
+                                      UpdateConfig(r=self.R, l_build=64,
+                                                   merge_threshold=1 << 30,
+                                                   device=dev))
+            del adj
+            held = host_rss()
+        t_idx = time.time() - t0
+        self.card0 = card0
+        self.sizing = dict(
+            host_held=(held - rss.base) / n, host_peak=(rss.peak - rss.base) / n,
+            card_held=(torch.cuda.memory_allocated() - card0) / n,
+            card_build=(torch.cuda.max_memory_allocated() - card0) / n,
+            t_build=t_idx)
+        store = self.idx.handle.current().index_store
+        log(f"live: {n} x {self.D} sift-like uint8 vectors sealed into "
+            f"{len(vs.sealed)} segment(s), random R={self.R} graph, the "
+            f"shard's PQ codebook (M={cb.n_subspaces}), medoid {medoid}; "
+            f"index store {store.n_blocks} blocks, EF universe "
+            f"{store.universe}; data {t_data:.1f} s, StreamingIndex (host "
+            f"graph + index store + device view) {t_idx:.1f} s = "
+            f"{1e6 * t_idx / n:.2f} us a vertex")
+
+    def log_sizing(self, t_merge):
+        """What bounds n: the index's bytes a vertex on the host and on the
+        card (held, and at the build's and the merge's peaks: a publish
+        holds the pinned snapshot's device view and the new one), and its
+        seconds, each projected to the full shard."""
+        torch, n, sz = self.torch, self.n, self.sizing
+        ram = host_ram()
+        card = torch.cuda.get_device_properties(0).total_memory
+        card_peak = max(sz["card_build"], sz["card_merge"])
+        fits = int((card - self.card0) / card_peak)
+        log(f"live sizing: the index takes {sz['host_held']:.0f} B a vertex "
+            f"on the host ({sz['host_peak']:.0f} B at its build's peak) "
+            f"and {sz['card_held']:.0f} B on the card ({sz['card_build']:.0f}"
+            f" B at the build's peak, {sz['card_merge']:.0f} B at the "
+            f"merge's); host RAM {ram / 2**30:.1f} GiB, card "
+            f"{card / 2**30:.1f} GiB ({self.card0 / 2**30:.1f} GiB held by "
+            f"earlier phases); at {SHARD_N} vertices it would peak at "
+            f"{sz['host_peak'] * SHARD_N / 2**30:.1f} GiB on the host and "
+            f"{card_peak * SHARD_N / 2**30:.1f} GiB on the card, so the card "
+            f"holds at most {fits} vertices at these peaks; the build "
+            f"would take {sz['t_build'] * SHARD_N / n:.0f} s (linear in n; "
+            f"this merge took {t_merge:.1f} s)")
+        if n < SHARD_N:
+            log(f"reduced: live n={n} < {SHARD_N} (set by --live-n: the "
+                f"card holds at most {fits} vertices at the measured peak "
+                f"of {card_peak:.0f} B a vertex, per the live sizing line; "
+                f"n is {100 * n / fits:.0f}% of that, headroom for the "
+                f"allocator)")
+
+    def serve(self, searcher, q, tag):
+        from repro_torch.kernels import build
+        torch = self.torch
+        build.reset_launches()
+        t0 = sync_time(torch)
+        ids, dists, rep = searcher.search(q)
+        wall = sync_time(torch, t0)
+        launched = dict(build.LAUNCHES)
+        log(f"live serve ({tag}): {len(q)} queries, version "
+            f"{rep.snapshot_version}, memtable rows {rep.mem_candidates}, "
+            f"wall {wall:.3f} s; {report_line(rep)}; launches {launched}")
+        return ids, rep, launched
+
+    def kernel_parity(self, p, q, mem_ids):
+        """The live path's kernels on the live view's own tensors, each
+        against its plain version (phase 2's bit-exact rule): the entry and
+        the fused hop over the view's codes, ef_decode at the view's EF
+        universe, the re-rank over its float32 rows, and the memtable lane
+        (rerank_l2 by id, every query reading every buffered row). Then
+        the memtable side-scan on the card against the same scan on the
+        CPU, on the same snapshot."""
+        from repro_torch.core.graph.pq import build_lut_torch
+        from repro_torch.core.update.consistency import memtable_topk
+        torch, par = self.torch, self.parity
+        snap = self.idx.handle.current()
+        view, universe = snap.device, snap.index_store.universe
+        n = view.pq_codes.shape[0]
+        nq, E = len(q), p.beam_width * self.R
+        qt = torch.from_numpy(q).to(self.dev)
+        luts = build_lut_torch(qt, view.pq_centroids)
+        cand_ids = par.table_ids(n, nq, p.l_size, "kept")
+        cand_d = par.compare("pq_adc_batched", "live candidates by id",
+                             view.pq_codes, luts, cand_ids)[0]
+        cand_d, order = cand_d.sort(1)
+        cand_ids = torch.gather(cand_ids, 1, order).contiguous()
+        par.compare("pq_adc_batched", "live entry by id", view.pq_codes,
+                    luts, cand_ids[:, :1].contiguous())
+        par.compare("beam_step", "live hop", view.pq_codes, luts, cand_ids,
+                    cand_d.contiguous(), par.table_ids(n, nq, E))
+        par.compare("ef_decode", f"live U={universe} by id", view.ef_slots,
+                    self.R, universe, par.ef_ids(n, nq * p.beam_width))
+        par.compare("rerank_l2", "live re-rank by id, f32 rows", qt,
+                    view.vectors, par.table_ids(n, nq, p.rerank_batch,
+                                                "kept"))
+        mem = torch.from_numpy(np.stack(
+            [snap.mem_rows[int(i)] for i in mem_ids])).to(self.dev)
+        every = torch.arange(len(mem), dtype=torch.int32, device=self.dev)
+        par.compare("rerank_l2", f"live memtable {nq}x{len(mem)} by id",
+                    qt, mem, every.expand(nq, -1).contiguous())
+        got = memtable_topk(snap, q, p.k)
+        want = memtable_topk(snap, q, p.k, device="cpu")
+        check(np.array_equal(got[0], want[0])
+              and np.array_equal(got[1].view(np.int32),
+                                 want[1].view(np.int32)),
+              "memtable side-scan: card != CPU")
+        log(f"live parity: pq_adc_batched (candidates, entry), beam_step "
+            f"(hop {nq}x{E}, L={p.l_size}), ef_decode (U={universe}) and "
+            f"rerank_l2 (re-rank over [{n}, {self.D}] f32, memtable "
+            f"{nq}x{len(mem)}) on the live view bit-exact; the memtable "
+            f"side-scan on the card == on the CPU (ids, dists)")
+
+    def run(self) -> dict:
+        from repro_torch.core.search.beam import SearchParams
+        from repro_torch.kernels import build
+        from repro_torch.serve.ann import BatchedSearcher, ServeConfig
+        torch, n = self.torch, self.n
+        torch.cuda.empty_cache()
+        self.build()
+        idx = self.idx
+        q = self.queries[:256].cpu().numpy()     # phase 4's first queries
+        # the update tier's own search parameters, so the served ids can
+        # be held against idx.search_batch
+        p = SearchParams(l_size=200, k=10, benefit_threshold=0.0)
+        searcher = BatchedSearcher(idx.handle, p,
+                                   ServeConfig(buckets=(8, 32, 256)))
+        total = {}
+        ids0, rep0, l0 = self.serve(searcher, q, "before updates")
+        add_launches(total, l0)
+        top1 = list(dict.fromkeys(ids0[:, 0].tolist()))
+        check(len(top1) >= 64, f"only {len(top1)} distinct top-1 hits")
+        dead = top1[:64]
+        fresh = np.arange(n, n + 64)
+        idx.delete(dead)
+        idx.insert(fresh, q[:64])    # integral values: uint8 records hold
+        ids1, rep1, l1 = self.serve(searcher, q, "deletes + inserts buffered")
+        add_launches(total, l1)
+        check(not np.isin(ids1, dead).any(), "a deleted id surfaced")
+        check(all(fresh[i] in ids1[i] for i in range(64)),
+              "a fresh id was not found through the memtable lane")
+        check(rep1.snapshot_version == rep0.snapshot_version
+              and rep1.mem_candidates == 64, "the snapshot moved before "
+              "the merge")
+        check(l1["rerank_l2"] == l0["rerank_l2"] + 1,
+              "the memtable lane is not one rerank_l2 launch")
+        self.kernel_parity(p, q, fresh)
+        build.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = sync_time(torch)
+        st = idx.merge()
+        t_merge = sync_time(torch, t0)
+        self.sizing["card_merge"] = (torch.cuda.max_memory_allocated()
+                                     - self.card0) / n
+        add_launches(total, dict(build.LAUNCHES))
+        store = idx.handle.current().index_store
+        log(f"live merge: {t_merge:.2f} s (repair {st.t_repair_s:.2f}, "
+            f"insert {st.t_insert_s:.2f}, vector {st.t_vector_s:.2f}, store "
+            f"{st.t_store_s:.2f}, publish {st.t_publish_s:.2f}); MergeStats: "
+            f"deleted {st.deleted}, inserted {st.inserted}, dirty vertices "
+            f"{st.dirty_vertices}, blocks rewritten {st.blocks_rewritten} + "
+            f"appended {st.blocks_appended} of {st.total_blocks}, write "
+            f"{st.write_bytes} B, full rebuild {st.full_rebuild}; write "
+            f"amplification {st.write_bytes / store.physical_bytes:.4f} of a "
+            f"full rebuild ({store.physical_bytes} B), "
+            f"{st.write_bytes / (st.deleted + st.inserted):.0f} B an update;"
+            f" modeled cost {st.modeled_cost_us:.1f} us; launches "
+            f"{dict(build.LAUNCHES)}")
+        ids2, rep2, l2 = self.serve(searcher, q, "after the merge")
+        add_launches(total, l2)
+        check(rep2.snapshot_version == rep0.snapshot_version + 1
+              and rep2.mem_candidates == 0, "the merge did not publish")
+        check(not np.isin(ids2, dead).any(), "a deleted id surfaced")
+        found = sum(fresh[i] in ids2[i] for i in range(64))
+        check(found > 0, "no fresh id is served from the graph")
+        linked = sum(any(v in idx.adjacency[int(u)] for u in idx.adjacency[v])
+                     for v in fresh)
+        want, _ = idx.search_batch(q, k=10, l_size=200)
+        check(np.array_equal(ids2, want), "served ids != idx.search_batch's")
+        log(f"live: after the merge {found} of 64 fresh ids served from the "
+            f"graph ({linked} of 64 kept a back-edge from one of their "
+            f"out-neighbours); served ids == idx.search_batch's; no deleted "
+            f"id surfaced in any serve")
+        self.log_sizing(t_merge)
+        for name in ("beam_step", "ef_decode", "pq_adc_batched", "rerank_l2",
+                     "huffman_decode"):
+            check(total[name] > 0, f"{name} never launched on the live path")
+        self.idx = None
+        return total
 
 
 # ------------------------------------------------------------------ report

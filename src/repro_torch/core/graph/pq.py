@@ -5,8 +5,10 @@ graph traversal without touching full-precision vectors.
 ``train_pq`` and ``encode_pq`` are numpy copies of ``repro.core.graph.pq``.
 ``encode_pq_torch`` encodes device tensors (the ``pq_encode`` kernel on a
 card, its plain version on the CPU) and gives the same codes as
-``encode_pq``. ``build_lut_torch`` is the per-query ADC table builder of
-the search path (``build_lut_jnp``), folding over ``dsub`` in order.
+``encode_pq``. ``build_lut`` and ``adc_lookup_np`` are the host engine's
+numpy LUT and ADC (``core/search/engine.py``). ``build_lut_torch`` is the
+per-query ADC table builder of the search path (``build_lut_jnp``),
+folding over ``dsub`` in order.
 """
 from __future__ import annotations
 
@@ -75,6 +77,20 @@ def encode_pq(vectors: np.ndarray, cb: PQCodebook, chunk: int = 4096) -> np.ndar
             d2 = ((sub[:, None, :] - cb.centroids[mi][None, :, :]) ** 2).sum(-1)
             codes[i:i + chunk, mi] = d2.argmin(1).astype(np.uint8)
     return codes
+
+
+def build_lut(query: np.ndarray, cb: PQCodebook) -> np.ndarray:
+    """Per-query ADC lookup table [M, K] float32 of squared sub-distances."""
+    q = np.asarray(query, dtype=np.float32)
+    m, k, dsub = cb.centroids.shape
+    qs = q.reshape(m, 1, dsub)
+    return ((qs - cb.centroids) ** 2).sum(-1).astype(np.float32)
+
+
+def adc_lookup_np(codes: np.ndarray, lut: np.ndarray) -> np.ndarray:
+    """Oracle ADC: dist[i] = sum_m lut[m, codes[i, m]]."""
+    m = lut.shape[0]
+    return lut[np.arange(m)[None, :], codes].sum(-1)
 
 
 def encode_pq_torch(vectors: torch.Tensor, centroids: torch.Tensor,

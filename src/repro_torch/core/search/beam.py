@@ -388,3 +388,17 @@ def search_candidates(index: DeviceIndex, queries, p: SearchParams,
     luts = build_lut_torch(queries, index.pq_centroids)
     cand_ids, cand_d, _ = traverse(index, luts, p)
     return cand_ids, cand_d
+
+
+def search_vmapped(index: DeviceIndex, queries, p: SearchParams,
+                   device=None):
+    """The per-query baseline (the reference's vmap of a solo search): one
+    nq=1 ``search_batched`` call a query, results and stats stacked ->
+    (ids [nq, K], dists [nq, K], SearchStats of [nq]). Each row equals the
+    batched search's row, since a batch row's trajectory is its solo run."""
+    queries = _on_device(index, queries, device)
+    runs = [search_batched(index, queries[i:i + 1], p, device)
+            for i in range(queries.shape[0])]
+    ids, dists, stats = zip(*runs)
+    return (torch.cat(ids), torch.cat(dists),
+            SearchStats(*(torch.cat(f) for f in zip(*stats))))

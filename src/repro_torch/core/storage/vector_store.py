@@ -152,14 +152,18 @@ class SealedSegment:
             raise KeyError(f"ids not in segment: {ids[~ok][:5].tolist()}")
         return rows
 
+    def account_reads(self, rows: torch.Tensor, io: IOStats) -> None:
+        """One 4 KiB read for each distinct block holding ``rows``."""
+        nblk = int(torch.unique(self.packed.rec_block[rows]).numel())
+        io.read(nblk * BLOCK_SIZE, n=nblk)
+
     def decode_bytes(self, rows, io: IOStats | None = None,
                      kernels=None) -> torch.Tensor:
         """Fetch + decompress records -> [k, V] uint8."""
         rows = torch.as_tensor(rows, dtype=torch.int64).to(self.ids.device)
         pk = self.packed
         if io is not None:
-            nblk = int(torch.unique(pk.rec_block[rows]).numel())
-            io.read(nblk * BLOCK_SIZE, n=nblk)
+            self.account_reads(rows, io)
         if self.huff is None:
             cols = torch.arange(self.v_bytes, device=rows.device)
             return pk.data[pk.rec_start[rows][:, None] + cols]
@@ -348,6 +352,15 @@ class DecoupledVectorStore:
         self._loc_ids = self._loc_ids[keep]
         self._loc_seg = self._loc_seg[keep]
         self._loc_row = self._loc_row[keep]
+
+    @property
+    def ids(self) -> torch.Tensor:
+        """The ids the store holds a live record for, sorted (int64)."""
+        return self._loc_ids
+
+    def contains(self, ids) -> torch.Tensor:
+        """Per id: whether the store holds a live record for it."""
+        return self._lookup(self._ids(ids))[0]
 
     def location(self, ids) -> tuple[torch.Tensor, torch.Tensor]:
         """(segment, row) of each id (segment -1: the mutable segment);
@@ -580,6 +593,17 @@ class DecoupledVectorStore:
             else:
                 out[sel] = got
         return out.view(self.dtype).reshape(len(ids), self.cfg.dim)
+
+    def account_reads(self, ids) -> None:
+        """Account the read I/O that ``get(ids)`` accounts (the distinct
+        blocks of each sealed segment's rows), without decoding: lets a
+        caller that fetches rows once for several logical reads keep the
+        I/O of each read."""
+        ids = self._ids(ids)
+        seg, _ = self.location(ids)
+        for sid in torch.unique(seg[seg >= 0]).tolist():
+            s = self.sealed[sid]
+            s.account_reads(s.rows_of(ids[seg == sid]), self.io)
 
     # ------------------------------------------------------------- updates
     def mark_stale(self, ids) -> None:

@@ -45,6 +45,12 @@ class KernelConfig(NamedTuple):
         return self
 
 
+def default_config() -> KernelConfig:
+    """The config used when a caller passes ``kernels=None``: every op
+    ``auto`` (no environment variable is read)."""
+    return KernelConfig()
+
+
 def resolve_backend(requested: str, device: torch.device | None,
                     op: str | None = None) -> str:
     """One op's request + its tensors' device -> concrete backend

@@ -636,3 +636,179 @@ def test_search_on_card_matches_cpu(cuda, beam_step, bits):
     assert_bits_equal(got[1], want[1])
     for name, a, b in zip(want[2]._fields, got[2], want[2]):
         assert_bits_equal(a, b)
+
+
+def _serving_world(dev_cpu):
+    vecs = make_vector_dataset("prop-like", 400, 16, seed=5)
+    index, graph, cb = build_device_index(vecs, r=12, l_build=24, pq_m=4,
+                                          seed=5, device="cpu")
+    return vecs, index, graph, cb
+
+
+def _same_report(a, b):
+    for f in ("n_queries", "n_padded", "buckets", "graph_ios", "vector_ios",
+              "cache_hits", "pq_ops", "exact_ops", "decompressions",
+              "io_rounds", "rerank_batches", "snapshot_version",
+              "shard_versions", "mem_candidates", "routed_rows",
+              "failed_shards", "modeled_latency_us", "modeled_p99_us",
+              "per_query_latency_us", "component_io", "storage_bytes"):
+        assert getattr(a, f) == getattr(b, f), f
+
+
+@pytest.mark.cuda
+def test_serving_on_card_matches_cpu(cuda):
+    """BatchedSearcher on the card (ragged and padded buckets) equals the
+    same searcher on the CPU: ids, distances, every report field; and the
+    tier adds no kernel launch to the searches it issues."""
+    from repro_torch.serve.ann import BatchedSearcher, ServeConfig
+    vecs, on_cpu, _, _ = _serving_world(cuda)
+    on_card = DeviceIndex(*(None if t is None else t.to(cuda)
+                            for t in on_cpu))
+    queries = make_queries("prop-like", 37, 16)
+    p = SearchParams(l_size=32, beam_width=4, k=10, rerank_batch=10,
+                     r_max=12, universe=400, max_iters=64)
+    cfg = ServeConfig(buckets=(8, 32), cache_bytes=1 << 14)
+    card = BatchedSearcher(on_card, p, cfg)
+    cpu = BatchedSearcher(on_cpu, p, cfg, device="cpu")
+    build.reset_launches()
+    got = card.search(queries)
+    served = dict(build.LAUNCHES)
+    want = cpu.search(queries, )
+    np.testing.assert_array_equal(got[0], want[0])
+    assert_bits_equal(torch.from_numpy(got[1]), torch.from_numpy(want[1]))
+    _same_report(got[2], want[2])
+    build.reset_launches()
+    for start, count, bucket in [(0, 32, 32), (32, 5, 8)]:
+        q = queries[start:start + count]
+        q = np.concatenate([q, np.repeat(q[-1:], bucket - count, 0)])
+        search(on_card, q, card.p)
+    assert served == build.LAUNCHES
+    assert served["beam_step"] > 0 and served["rerank_l2"] > 0
+
+
+@pytest.mark.cuda
+def test_sharded_serving_on_card_matches_cpu(cuda):
+    from repro_torch.core.distributed.sharded_index import (
+        ShardedIndex, build_router, build_sharded_index)
+    from repro_torch.serve.ann import BatchedSearcher, ServeConfig
+    vecs = make_vector_dataset("prop-like", 300, 16, seed=6)
+    sh_cpu, per = build_sharded_index(vecs, 4, r=12, l_build=24, pq_m=4,
+                                      partition="cluster", device="cpu")
+    sh_card = ShardedIndex(*(t.to(cuda) for t in sh_cpu))
+    router_cpu = build_router(sh_cpu, c=3)
+    router_card = build_router(sh_card, c=3)
+    assert torch.equal(router_card.centroids.cpu(), router_cpu.centroids)
+    queries = make_queries("prop-like", 12, 16)
+    p = SearchParams(l_size=32, k=5, rerank_batch=5, r_max=12,
+                     universe=per, max_iters=64)
+    cfg = ServeConfig(buckets=(1, 4), route_frac=0.5)
+    card = BatchedSearcher(sh_card, p, cfg, shard_size=per,
+                           router=router_card)
+    cpu = BatchedSearcher(sh_cpu, p, cfg, shard_size=per, router=router_cpu,
+                          device="cpu")
+    for failed in (None, [2]):
+        got = card.search(queries, failed_shards=failed)
+        want = cpu.search(queries, failed_shards=failed)
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+        _same_report(got[2], want[2])
+
+
+@pytest.mark.cuda
+def test_live_index_on_card_matches_cpu(cuda):
+    """A StreamingIndex with its vector store and device views on the card
+    through delete, insert (the memtable lane: rerank_l2 by id over every
+    buffered row), merge and GC equals the same index on the CPU."""
+    from repro_torch.core.graph.pq import encode_pq, train_pq
+    from repro_torch.core.graph.vamana import build_vamana
+    from repro_torch.core.update.fresh import StreamingIndex, UpdateConfig
+    from repro_torch.serve.ann import BatchedSearcher, ServeConfig
+    vecs = make_vector_dataset("prop-like", 300, 16, seed=7).astype(
+        np.float32)
+    graph = build_vamana(vecs, r=12, l_build=24, seed=0)
+    cb = train_pq(vecs, m=4, seed=0)
+    codes = encode_pq(vecs, cb)
+    idx = {}
+    for name, dev in (("card", cuda), ("cpu", "cpu")):
+        vs = DecoupledVectorStore(StoreConfig(dim=16, dtype=np.float32,
+                                              segment_capacity=128,
+                                              device=dev))
+        vs.append(np.arange(300), vecs)
+        vs.seal_active()
+        idx[name] = StreamingIndex(graph.adjacency, graph.medoid, vs,
+                                   codes.copy(), cb,
+                                   UpdateConfig(r=12, l_build=24,
+                                                gc_threshold=0.1,
+                                                device=dev))
+    p = SearchParams(l_size=32, k=5, rerank_batch=5, max_iters=64,
+                     benefit_threshold=0.0)
+    searchers = {name: BatchedSearcher(x.handle, p, ServeConfig(buckets=(4,)),
+                                       device=x.device)
+                 for name, x in idx.items()}
+    q = vecs[[10, 20, 30, 40]] + 0.001
+    fresh = np.stack([vecs[10] * 1.0002 + (i % 3) * 1e-3 for i in range(40)])
+
+    def serve():
+        got, want = (searchers[n].search(q) for n in ("card", "cpu"))
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+        _same_report(got[2], want[2])
+        return got
+
+    serve()
+    for x in idx.values():
+        x.delete(list(range(0, 100, 3)))
+        x.insert(np.arange(300, 340), fresh)
+    build.reset_launches()
+    ids, _, rep = serve()
+    assert build.LAUNCHES["rerank_l2"] > 0 and rep.mem_candidates == 40
+    st = {n: x.merge() for n, x in idx.items()}
+    for f in ("dirty_vertices", "blocks_rewritten", "blocks_appended",
+              "write_bytes", "full_rebuild", "modeled_cost_us"):
+        assert getattr(st["card"], f) == getattr(st["cpu"], f), f
+    for a, b in zip(idx["card"].adjacency, idx["cpu"].adjacency):
+        np.testing.assert_array_equal(a, b)
+    ids, _, rep = serve()
+    assert rep.snapshot_version == 1
+    assert idx["card"].vector_store.io.snapshot() == \
+        idx["cpu"].vector_store.io.snapshot()
+
+
+@pytest.mark.cuda
+def test_uint8_live_merge_on_card_matches_cpu(cuda):
+    """A StreamingIndex over a uint8 store (the deployment's record width)
+    on the card: its delete repair and inserts give the CPU index's graph
+    and merge counters, and its searches the CPU's ids and distances."""
+    from repro_torch.core.graph.pq import encode_pq, train_pq
+    from repro_torch.core.graph.vamana import build_vamana
+    from repro_torch.core.update.fresh import StreamingIndex, UpdateConfig
+    vecs = make_vector_dataset("sift-like", 400, 16, seed=5)
+    graph = build_vamana(vecs.astype(np.float32), r=16, l_build=32, seed=0)
+    cb = train_pq(vecs.astype(np.float32), m=4, seed=0)
+    codes = encode_pq(vecs.astype(np.float32), cb)
+    idx = {}
+    for name, dev in (("card", cuda), ("cpu", "cpu")):
+        vs = DecoupledVectorStore(StoreConfig(dim=16, dtype=np.uint8,
+                                              segment_capacity=256,
+                                              chunk_bytes=4096, device=dev))
+        vs.append(np.arange(400), vecs)
+        vs.seal_active()
+        idx[name] = StreamingIndex(graph.adjacency, graph.medoid, vs,
+                                   codes.copy(), cb,
+                                   UpdateConfig(r=16, l_build=32,
+                                                merge_threshold=10**9,
+                                                device=dev))
+    dead = np.random.default_rng(0).choice(400, 24, replace=False)
+    for x in idx.values():
+        x.delete(dead)
+        x.insert(np.arange(400, 408), vecs[:8].astype(np.float32))
+    st = {n: x.merge() for n, x in idx.items()}
+    for f in ("deleted", "inserted", "dirty_vertices", "blocks_rewritten",
+              "blocks_appended", "write_bytes", "full_rebuild"):
+        assert getattr(st["card"], f) == getattr(st["cpu"], f), f
+    for a, b in zip(idx["card"].adjacency, idx["cpu"].adjacency):
+        np.testing.assert_array_equal(a, b)
+    q = vecs[[3, 50, 99]].astype(np.float32)
+    got, want = (idx[n].search_batch(q, k=5) for n in ("card", "cpu"))
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])

@@ -22,7 +22,10 @@ from repro_torch.configs import decouplevs_ann as cfg
 from repro_torch.core import index
 from repro_torch.core.codec import bitpack, elias_fano
 from repro_torch.core.graph import pq, vamana
+from repro_torch.core.distributed import sharded_index
 from repro_torch.core.search import beam
+from repro_torch.core.update import consistency, fresh
+from repro_torch.serve import ann
 from repro_torch.data import synthetic
 
 from conftest import build_search_world
@@ -241,6 +244,11 @@ def test_entry_points_default_to_the_card(world):
     arrays = _arrays(idx)
     on_cpu = index.device_index_from_numpy(arrays, "cpu")
     p = beam.SearchParams(l_size=16, r_max=24, universe=1200, max_iters=4)
+    snap = consistency.Snapshot(version=0, index_store=None,
+                                vector_store=None, pq_codes=None,
+                                mem_rows={7: vecs[7]},
+                                device=on_cpu._replace(
+                                    tombstone=torch.zeros(1200, dtype=bool)))
     calls = [
         lambda: index.build_device_index(vecs[:50], r=8, l_build=8, pq_m=4),
         lambda: index.device_index_from_numpy(arrays),
@@ -248,6 +256,23 @@ def test_entry_points_default_to_the_card(world):
         lambda: beam.search_batched(on_cpu, queries[:2], p),
         lambda: beam.search_one(on_cpu, queries[0], p),
         lambda: beam.search_candidates(on_cpu, queries[:2], p),
+        lambda: beam.search_vmapped(on_cpu, queries[:2], p),
+        lambda: ann.BatchedSearcher(on_cpu, p),
+        lambda: sharded_index.build_sharded_index(vecs[:60], 2, r=8,
+                                                  l_build=8, pq_m=4),
+        lambda: sharded_index.sharded_index_from_numpy(
+            {k: np.stack([v, v]) for k, v in arrays.items()
+             if k != "tombstone"} | {"row_ids": np.zeros((2, 1200))}),
+        lambda: consistency.build_device_view(
+            [np.array([1]), np.array([0])], 0, arrays["pq_codes"][:2],
+            arrays["pq_centroids"], lambda i: vecs[i], 32, r_max=24,
+            universe=1200),
+        lambda: consistency.memtable_topk(snap, queries[:2], 5),
+        lambda: fresh.snapshot_search(snap, queries[:2], p),
+        lambda: fresh.StreamingIndex(
+            [np.array([1]), np.array([0])], 0, None, arrays["pq_codes"][:2],
+            pq.PQCodebook(arrays["pq_centroids"], 32),
+            fresh.UpdateConfig(r=24)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
