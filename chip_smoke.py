@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke test of ``repro_torch`` (the PyTorch + CUDA port) on one
-NVIDIA GPU: the paper's §3.4 query path, its serving tier, the §3.3
-storage path and the §3.5 live update path end to end, at one shard of the repo's SIFT1B-scale deployment
+NVIDIA GPU: the paper's §3.4 query path, its serving tier (with its
+sharded merges and its admission queue), the §3.3 storage path and the
+§3.5 live update path end to end, at one shard of the repo's SIFT1B-scale deployment
 (``configs/decouplevs_ann.py``: 32 shards of ~31.25M 128-dim uint8 vectors,
 R=128, PQ M=32, 512 MiB segments of 4 MiB chunks).
 
@@ -52,6 +53,33 @@ Phases (any fault exits non-zero; there is no CPU fallback):
    the wall and the card's busy share of a profiled serve. Then the
    frozen sharded branch: the small world in 4 range shards, a router at
    route_frac 0.5, with and without a failed shard, card == CPU.
+4e. mesh — make_sharded_search's stacked form: the resident shard split
+   into 32 range shards of ceil(n / 32) rows (the deployment's 32 data
+   shards on one card; the last shard's pad rows carry row_ids -1), each
+   with its own seeded random R=128 graph in local ids, EF slots at that
+   universe and phase 4's PQ codes and codebook. First the path's kernels
+   on the last shard's own tensors against their plain versions, at the
+   hop shapes the search gives them (ef_decode by id at R=128 and the
+   shard's universe; pq_adc_batched, beam_step and rerank_l2 by id over
+   its codes and vectors). The 1,024 queries are searched shard by shard
+   and merged hierarchically (5 butterfly steps) and flat (one 320-row
+   gather): the two merges agree bit for bit, equal a host (distance, id)
+   merge of the 32 shards' rows, and no id at or past n surfaces. Routing
+   at route_frac 1.0 equals no router and at 0.5 keeps every id in its
+   query's routed shards, on the small world's 32-shard stack, card
+   against the CPU: build_router's host k-means, timed on 2,048 rows of
+   each mesh shard, would take minutes over the mesh's rows. Prints walls,
+   launches, the merge's own device time and merge_comm_rows.
+4f. admission — the admission queue over a BatchedSearcher on the
+   resident shard (buckets (8, 32, 1024), max_batch 1024), three tenants
+   weighted 0.6/0.3/0.1 with a token bucket on the hottest, the service
+   model calibrated on 32 of phase 4's queries; a Poisson and a bursty
+   trace of 4,096 requests at 0.8 of the modeled capacity. Every request
+   is served once with phase 4's row for its query bit for bit, each batch
+   pins one snapshot, the buckets conserve tokens, and the cuts include
+   full, deadline and drain with deferred grants. Prints batches by
+   reason, the deadline-met share, modeled p50/p95/p99, the queue runs'
+   host walls and the card's busy share of the Poisson run (profiled).
 4b. storage — the §3.3 path on the same shard: its vectors sealed into the
    decoupled vector store ("auto": the sampled-entropy XOR-delta test per
    chunk, one Huffman table per segment), its graph sealed into the
@@ -90,12 +118,17 @@ Phases (any fault exits non-zero; there is no CPU fallback):
    chunk) on the segment huffman_decode is timed on, the single-LUT
    kernel on all-equal codes of the shard's scan (its LUT reads
    conflict-free) beside the time of reading the same 1 GB of codes once,
-   then the contract's last lines.
+   then the autotune of the fused hop against the unfused one at the hop
+   shapes of phases 4, 4c and 4d, written under the card's key to
+   build/autotune_cache.json and resolved from there (a search under the
+   resolved config equals phase 4's rows), then the contract's last lines.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -189,13 +222,26 @@ def main() -> int:
     parity.run_shard(shard)
     launches = shard.search()
     add_launches(launches, Serve(torch, shard, args).run())   # 4c. serve
+    added = {}                  # the phases of the ANN tier's last slice
+    t1 = time.time()
+    mesh = MeshSearch(torch, shard, parity, args)         # 4e. mesh
+    add_launches(launches, mesh.run())
+    added["4e"], t1 = time.time() - t1, time.time()
+    add_launches(launches, Admission(torch, shard, args).run())   # 4f
+    added["4f"] = time.time() - t1
     times = time_kernels(torch, parity)                    # 5. report: times
+    t1 = time.time()
+    autotune_hops(torch, shard, parity)                    # 5. autotune
+    added["autotune"] = time.time() - t1
     storage = Storage(torch, shard, args)                  # 4b. storage
     launches.update(storage.run())
     launches["pq_encode"] = shard.build_launches["pq_encode"]
     add_launches(launches, Live(torch, shard, parity, args).run())  # 4d
     kernels = report(parity, launches, times)              # 5. report
 
+    log(f"chip_smoke: whole run {time.time() - t0:.1f} s, of which phase 4e "
+        f"{added['4e']:.1f} s, 4f {added['4f']:.1f} s, the autotune "
+        f"{added['autotune']:.1f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1104,8 +1150,8 @@ class Shard:
 
 def device_busy(torch, prof, what, wall, prof_wall) -> bool:
     """Log the device busy time of a profiled run against its unprofiled
-    and profiled walls, with the top kernels; False if the profiler saw no
-    device time."""
+    (None: not run) and profiled walls, with the top kernels; False if the
+    profiler saw no device time."""
     # device-side events only (kernels, memsets, copies): the CPU ops
     # that launched them carry the same time again
     rows = [(ev.self_device_time_total, ev.count, ev.key[:60])
@@ -1119,10 +1165,11 @@ def device_busy(torch, prof, what, wall, prof_wall) -> bool:
     busy = sum(r[0] for r in rows) / 1e6
     rows.sort(reverse=True)
     top = "; ".join(f"{k} {us / 1e3:.2f} ms x{c}" for us, c, k in rows[:8])
-    log(f"profile ({what}): device busy {busy * 1e3:.2f} ms = "
-        f"{100 * busy / wall:.1f}% of the unprofiled wall {wall:.3f} s "
-        f"({100 * busy / prof_wall:.1f}% of the profiled {prof_wall:.3f} s); "
-        f"top device time: {top}")
+    share = "" if wall is None else (
+        f"{100 * busy / wall:.1f}% of the unprofiled wall {wall:.3f} s (")
+    log(f"profile ({what}): device busy {busy * 1e3:.2f} ms = {share}"
+        f"{100 * busy / prof_wall:.1f}% of the profiled {prof_wall:.3f} s"
+        f"{'' if wall is None else ')'}; top device time: {top}")
     return True
 
 
@@ -1488,6 +1535,434 @@ class Serve:
             + "; ".join(parts) + f"; launches {launched}; "
             f"{time.time() - t0:.1f} s")
         return launched
+
+
+# ------------------------------------------------------------------- mesh
+def lex_merge_host(ids, dists, k):
+    """The (distance, id) top-k of each row of [Q, C] host candidates, -1
+    ids last among equal distances: a plain host merge, independent of the
+    port's merges."""
+    key = np.where(ids < 0, np.iinfo(np.int32).max, ids)
+    out_i = np.empty((len(ids), k), ids.dtype)
+    out_d = np.empty((len(ids), k), dists.dtype)
+    for qi in range(len(ids)):
+        order = np.lexsort((key[qi], dists[qi]))[:k]
+        out_i[qi], out_d[qi] = ids[qi][order], dists[qi][order]
+    return out_i, out_d
+
+
+class MeshSearch:
+    """Phase 4e: ``make_sharded_search``'s stacked form, the deployment's
+    32 data shards on one card. The resident shard's vectors are split
+    into 32 contiguous range shards of ceil(n / 32) rows (the last one
+    padded with copies of its last row, row_ids -1); each shard gets its
+    own seeded random R=128 graph in local ids, its EF slots at universe
+    ceil(n / 32) and the shard's PQ codes under phase 4's codebook."""
+
+    S, ROUTER_ROWS = 32, 2048
+
+    def __init__(self, torch, shard, parity, args):
+        self.torch, self.shard, self.seed = torch, shard, args.seed
+        self.parity = parity
+
+    def build(self):
+        from repro_torch.core.codec.elias_fano import (encode_slots_torch,
+                                                       slot_layout)
+        from repro_torch.core.distributed.sharded_index import ShardedIndex
+        torch, shard, S = self.torch, self.shard, self.S
+        dev, R, n = shard.dev, shard.R, shard.n
+        per = -(-n // S)
+        t0 = sync_time(torch)
+        # the pad rows (only the last shard has any) repeat its last row
+        rows = torch.arange(S * per, device=dev).clamp_max(n - 1)
+        row_ids = torch.arange(S * per, dtype=torch.int32, device=dev)
+        row_ids = torch.where(row_ids < n, row_ids, -1).view(S, per)
+        vectors = shard.index.vectors[rows.reshape(-1)].view(S, per, -1)
+        codes = shard.index.pq_codes[rows.reshape(-1)].view(S, per, -1)
+        del rows
+        words = slot_layout(R, per)[3]
+        slots = torch.empty((S, per, words), dtype=torch.int32, device=dev)
+        full = torch.full((Shard.CHUNK,), R, dtype=torch.int32, device=dev)
+        medoids = []
+        for s in range(S):
+            for a in range(0, per, Shard.CHUNK):
+                b = min(a + Shard.CHUNK, per)
+                adj = random_graph_rows(torch, per, R, self.seed + 101 + s,
+                                        a, b, dev, Shard.CHUNK)
+                slots[s, a:b] = encode_slots_torch(adj, full[:b - a], R, per)
+            medoids.append(medoid_of(torch, vectors[s], Shard.CHUNK))
+        cents = shard.index.pq_centroids
+        self.index = ShardedIndex(
+            neighbors=torch.full((S, 1, R), -1, dtype=torch.int32,
+                                 device=dev),
+            counts=torch.full((S, per), R, dtype=torch.int32, device=dev),
+            ef_slots=slots, pq_codes=codes,
+            pq_centroids=cents[None].expand((S,) + cents.shape),
+            vectors=vectors,
+            medoid=torch.tensor(medoids, dtype=torch.int64, device=dev),
+            row_ids=row_ids)
+        self.per, self.n_pad = per, S * per - n
+        self.p = shard.p._replace(universe=per)
+        card = sum(t.numel() * t.element_size() for t in
+                   (slots, codes, vectors, row_ids))
+        log(f"reduced: mesh per-shard n={per} (S={S})")
+        log(f"mesh: the {n}-vector shard as {S} range shards of {per} rows "
+            f"({self.n_pad} pad rows with row_ids -1 in the last), R={R} "
+            f"random graph a shard in local ids, EF slots of {words} words "
+            f"at universe {per}, phase 4's PQ codes and codebook; card bytes "
+            f"{card / 1e9:.2f} GB (vectors {vectors.numel() / 1e9:.2f}, codes "
+            f"{codes.numel() / 1e9:.2f}, EF slots {slots.numel() * 4 / 1e9:.2f}"
+            f", row_ids {row_ids.numel() * 4 / 1e9:.2f}) beside the shard's "
+            f"own tables; host bytes: the {S} x {shard.nq} x {shard.p.k} "
+            f"rows of the host-merge check only "
+            f"({S * shard.nq * shard.p.k * 8 / 1e6:.1f} MB); built in "
+            f"{sync_time(torch, t0):.1f} s")
+
+    def kernel_parity(self, s):
+        """The path's kernels on mesh shard ``s``'s own tensors, each
+        against its plain version (phase 2's bit-exact rule), at the hop
+        shapes the mesh search gives them: the candidates' and the entry's
+        ADC and the fused hop over the shard's PQ codes, ef_decode by id
+        over its EF slots at (R, the shard's universe), and the re-rank by
+        id over its uint8 vectors. These launches are not the path's."""
+        torch, par, shard = self.torch, self.parity, self.shard
+        index, p, per, R = self.index, self.p, self.per, shard.R
+        codes, vectors = index.pq_codes[s], index.vectors[s]
+        nq, E, L = shard.nq, p.beam_width * R, p.l_size
+        t0 = time.time()
+        luts = shard.luts()
+        cand_ids = par.table_ids(per, nq, L, "kept")
+        cand_d = par.compare("pq_adc_batched", f"mesh shard {s} candidates "
+                             "by id", codes, luts, cand_ids)[0]
+        cand_d, order = cand_d.sort(1)
+        cand_ids = torch.gather(cand_ids, 1, order).contiguous()
+        par.compare("pq_adc_batched", f"mesh shard {s} entry by id", codes,
+                    luts, cand_ids[:, :1].contiguous())
+        par.compare("beam_step", f"mesh shard {s} hop", codes, luts,
+                    cand_ids, cand_d.contiguous(), par.table_ids(per, nq, E))
+        par.compare("ef_decode", f"mesh shard {s} R={R} U={per} by id",
+                    index.ef_slots[s], R, per,
+                    par.ef_ids(per, nq * p.beam_width))
+        par.compare("rerank_l2", f"mesh shard {s} re-rank by id",
+                    shard.queries, vectors,
+                    par.table_ids(per, nq, p.rerank_batch, "kept"))
+        log(f"mesh parity: on shard {s}'s own tensors pq_adc_batched "
+            f"(candidates {nq}x{L}, entry), beam_step (hop {nq}x{E}, "
+            f"L={L}, M={codes.shape[1]}), ef_decode (R={R}, U={per}, "
+            f"{nq * p.beam_width} ids) and rerank_l2 ({nq}x"
+            f"{p.rerank_batch} rows of [{per}, {vectors.shape[1]}] "
+            f"{str(vectors.dtype).removeprefix('torch.')}) "
+            f"bit-exact against their plain versions "
+            f"({time.time() - t0:.1f} s)")
+
+    def run(self) -> dict:
+        from repro_torch.core.distributed.sharded_index import (
+            make_mesh, make_sharded_search, merge_comm_rows, merge_sharded,
+            shard_topk)
+        from repro_torch.kernels import build
+        torch, shard, S = self.torch, self.shard, self.S
+        self.build()
+        self.kernel_parity(S - 1)
+        index, p, k = self.index, self.p, self.p.k
+        q = shard.queries
+        mesh = make_mesh((S,), device=shard.dev)
+        build.reset_launches()
+        t0 = sync_time(torch)
+        gids, d = shard_topk(index, q, p)
+        wall_local = sync_time(torch, t0)
+        per_shard = dict(build.LAUNCHES)
+        check(all(per_shard[x] >= S for x in
+                  ("beam_step", "ef_decode", "pq_adc_batched", "rerank_l2")),
+              f"the {S} shard searches launched {per_shard}")
+        cand_i = gids.permute(1, 0, 2).reshape(len(q), -1).cpu().numpy()
+        cand_d = d.permute(1, 0, 2).reshape(len(q), -1).cpu().numpy()
+        want = lex_merge_host(cand_i, cand_d, k)
+        rows, walls = {}, {}
+        for merge in ("hier", "flat"):
+            run = make_sharded_search(mesh, p, merge=merge)
+            build.reset_launches()
+            t0 = sync_time(torch)
+            ids, dists = run(index, q)
+            walls[merge] = sync_time(torch, t0)
+            check(dict(build.LAUNCHES) == per_shard,
+                  f"{merge} merge: launches {dict(build.LAUNCHES)} != the "
+                  f"{S} shard searches' {per_shard}")
+            rows[merge] = (ids.cpu().numpy(), dists.cpu().numpy())
+        (hi, hd), (fi, fd) = rows["hier"], rows["flat"]
+        check(np.array_equal(hi, fi)
+              and np.array_equal(hd.view(np.int32), fd.view(np.int32)),
+              "mesh: hierarchical and flat merges differ")
+        check(np.array_equal(hi, want[0])
+              and np.array_equal(hd.view(np.int32), want[1].view(np.int32)),
+              "mesh: merged rows != a host merge of the 32 shards' rows")
+        check(bool((hi >= 0).all()) and int(hi.max()) < shard.n,
+              f"mesh: an id outside [0, {shard.n}) surfaced "
+              f"(max {int(hi.max())})")
+        merge_ms = {m: cuda_ms(torch, lambda m=m: merge_sharded(
+            gids, d, mesh, k, m)) for m in ("hier", "flat")}
+        comm = {m: merge_comm_rows(k, [S], m) for m in ("hier", "flat")}
+        log(f"mesh: {len(q)} queries over {S} shards (production SearchParams, "
+            f"universe {self.per}); the {S} shard searches {wall_local:.3f} "
+            f"s, launches {per_shard} ({per_shard['beam_step'] / S:.1f} "
+            f"beam_step a shard); hierarchical merge ({int(np.log2(S))} "
+            f"butterfly steps, merge_comm_rows {comm['hier']} a query) wall "
+            f"{walls['hier']:.3f} s, merge alone {merge_ms['hier']:.4f} ms "
+            f"device; flat merge (one {comm['flat']}-row gather) wall "
+            f"{walls['flat']:.3f} s, merge alone {merge_ms['flat']:.4f} ms "
+            f"device; hier == flat bit for bit == a host (distance, id) "
+            f"merge of the {S} shards' rows; no id at or past {shard.n}, no "
+            f"pad row")
+        launches = dict(per_shard)
+        add_launches(launches, per_shard)
+        add_launches(launches, per_shard)
+        add_launches(launches, self.routed())
+        self.index = None
+        return launches
+
+    def routed(self) -> dict:
+        """Routing at 1.0 and 0.5 through build_router(c=4) on the small
+        world's 32-shard stack (n=1200, cluster partition), card against
+        the CPU. build_router's host k-means is linear in rows: timed here
+        on the first 2,048 rows of each mesh shard, the mesh's own rows
+        would take far past what the run can spend on it."""
+        from repro_torch.core.distributed.sharded_index import (
+            ShardedIndex, ShardRouter, build_router, build_sharded_index,
+            make_mesh, make_sharded_search, route_mask)
+        from repro_torch.core.search.beam import SearchParams
+        from repro_torch.data.synthetic import (make_queries,
+                                                make_vector_dataset)
+        from repro_torch.kernels import build
+        torch, S, dev, index = self.torch, self.S, self.shard.dev, self.index
+        cut = index._replace(vectors=index.vectors[:, :self.ROUTER_ROWS],
+                             row_ids=index.row_ids[:, :self.ROUTER_ROWS])
+        t0 = time.perf_counter()
+        build_router(cut, c=4, seed=self.seed)
+        t_cut = time.perf_counter() - t0
+        log(f"mesh routing: build_router on the first {self.ROUTER_ROWS} "
+            f"rows of each of the {S} shards took {t_cut:.2f} s (host "
+            f"k-means, linear in rows), so the {self.per} rows a shard would "
+            f"take ~{t_cut * self.per / self.ROUTER_ROWS:.0f} s: routing "
+            f"runs on the small world's {S}-shard stack")
+        vecs = make_vector_dataset("prop-like", n=1200, dim=32,
+                                   seed=self.seed).astype(np.float32)
+        on_cpu, per = build_sharded_index(vecs, S, r=24, l_build=48, pq_m=8,
+                                          seed=self.seed, partition="cluster",
+                                          device="cpu")
+        t0 = time.perf_counter()
+        cpu_router = build_router(on_cpu, c=4, seed=self.seed)
+        t_router = time.perf_counter() - t0
+        p = SearchParams(l_size=48, beam_width=4, k=10, rerank_batch=10,
+                         r_max=24, universe=per, max_iters=128)
+        on_card = ShardedIndex(*(t.to(dev) for t in on_cpu))
+        router = ShardRouter(cpu_router.centroids.to(dev))
+        q = torch.from_numpy(make_queries("prop-like", 32, 32).astype(
+            np.float32)).to(dev)
+        mesh, cpu_mesh = make_mesh((S,), device=dev), make_mesh(
+            (S,), device="cpu")
+        ids, d = make_sharded_search(mesh, p)(on_card, q)
+        unrouted = (ids.cpu().numpy(), d.cpu().numpy())
+        rids = on_cpu.row_ids.numpy()
+        shard_of = np.full(int(rids.max()) + 1, -1)
+        for s, row in enumerate(rids):
+            shard_of[row[row >= 0]] = s
+        launches, parts = {}, []
+        for frac in (1.0, 0.5):
+            run = make_sharded_search(mesh, p, router=router,
+                                      route_frac=frac)
+            build.reset_launches()
+            t0 = sync_time(torch)
+            ids, d = run(on_card, q)
+            wall = sync_time(torch, t0)
+            add_launches(launches, dict(build.LAUNCHES))
+            ids, d = ids.cpu().numpy(), d.cpu().numpy()
+            if frac == 1.0:
+                check(np.array_equal(ids, unrouted[0])
+                      and np.array_equal(d.view(np.int32),
+                                         unrouted[1].view(np.int32)),
+                      "routing at 1.0 != the unrouted search")
+            else:
+                mask = route_mask(router.centroids, q, frac).cpu().numpy()
+                live = ids >= 0
+                owner = shard_of[np.where(live, ids, 0)]
+                check(bool(mask[np.nonzero(live)[0], owner[live]].all()),
+                      "routing at 0.5: an id from a shard its query was not "
+                      "routed to")
+            want = make_sharded_search(cpu_mesh, p, router=cpu_router,
+                                       route_frac=frac)(on_cpu, q.cpu())
+            check(np.array_equal(ids, want[0].numpy())
+                  and np.array_equal(d.view(np.int32),
+                                     want[1].numpy().view(np.int32)),
+                  f"routing at {frac}: card != CPU")
+            parts.append(f"route_frac {frac}: wall {wall:.3f} s, "
+                         f"{int((ids >= 0).sum())} ids")
+        log(f"mesh routing on the small world's stack (build_router c=4 "
+            f"over its 1,200 rows {t_router:.3f} s): " + "; ".join(parts)
+            + "; 1.0 == unrouted bit for bit; at 0.5 every id lies in one "
+            f"of its query's routed shards; card == CPU; launches {launches}")
+        return launches
+
+
+# -------------------------------------------------------------- admission
+class Admission:
+    """Phase 4f: the admission queue (serve/admission.py) over a
+    BatchedSearcher on the resident shard, configured as phase 4c's
+    (buckets (8, 32, 1024), LRU of 0.1% of n x dim) with per-tenant LRU
+    partitions on a shared budget; three tenants weighted 0.6/0.3/0.1,
+    a token bucket on the hottest. A seeded Poisson and a seeded bursty
+    trace of 4,096 requests drawn from phase 4's queries (with repeats)
+    at 0.8 of the modeled capacity."""
+
+    N_REQ, MAX_BATCH = 4096, 1024
+    TENANTS, WEIGHTS = ("hot", "warm", "cold"), (0.6, 0.3, 0.1)
+
+    def __init__(self, torch, shard, args):
+        self.torch, self.shard, self.seed = torch, shard, args.seed
+
+    def searcher(self):
+        from repro_torch.configs.decouplevs_ann import CONFIG
+        from repro_torch.serve.ann import BatchedSearcher, ServeConfig
+        shard = self.shard
+        return BatchedSearcher(shard.index, shard.p, ServeConfig(
+            buckets=(8, 32, 1024), shared_budget=True,
+            cache_bytes=int(CONFIG.cache_ratio * shard.n * shard.D)))
+
+    def traces(self, model):
+        from repro_torch.serve.admission import bursty_trace, poisson_trace
+        s_max = model.service_us(self.MAX_BATCH)
+        rate = 0.8 * self.MAX_BATCH / s_max * 1e6
+        q = self.shard.queries.cpu().numpy()
+        # slack 2 to 3 full batches' service: a queue that fills before
+        # its oldest request's slack runs out cuts full, one that does not
+        # cuts on the deadline; the bursty trace's ON phases (0.2 of a
+        # period of 4 full services, 4x the rate) fill it, the rest not
+        kw = dict(n=self.N_REQ, tenants=self.TENANTS, weights=self.WEIGHTS,
+                  deadline_us=2.0 * s_max, deadline_jitter_us=1.0 * s_max)
+        return rate, {
+            "poisson": poisson_trace(q, rate, seed=self.seed, **kw),
+            "bursty": bursty_trace(q, rate, burst_factor=4.0, duty=0.2,
+                                   period_us=4.0 * s_max,
+                                   seed=self.seed + 1, **kw)}
+
+    def queue(self, model, rate):
+        from repro_torch.serve.admission import (AdmissionConfig,
+                                                 AdmissionQueue, TenantConfig)
+        return AdmissionQueue(
+            self.searcher(), model, AdmissionConfig(max_batch=self.MAX_BATCH),
+            tenants={"hot": TenantConfig(rate_qps=self.hot_qps(rate),
+                                         burst=16)})
+
+    def hot_qps(self, rate):
+        """The hottest tenant's bucket refills at 1.1x its mean rate:
+        bursts defer its requests, its long-run traffic is never starved."""
+        return 1.1 * self.WEIGHTS[0] * rate
+
+    def run(self) -> dict:
+        from repro_torch.kernels import build
+        from repro_torch.serve.admission import calibrate_service_model
+        torch, shard = self.torch, self.shard
+        want_ids = shard.result[0].cpu().numpy()
+        want_d = shard.result[1].cpu().view(torch.int32).numpy()
+        nq = len(want_ids)
+        t0 = time.perf_counter()
+        model = calibrate_service_model(self.searcher(),
+                                        shard.queries[:32].cpu().numpy())
+        t_cal = time.perf_counter() - t0
+        rate, traces = self.traces(model)
+        q0 = traces["poisson"][0].query
+        log(f"admission: card bytes: none beyond the resident shard and "
+            f"each batch's queries; host bytes: {len(traces)} traces of "
+            f"{self.N_REQ} requests, each holding a {q0.nbytes} B query "
+            f"copy ({len(traces) * self.N_REQ * q0.nbytes / 1e6:.1f} MB), "
+            f"and each batch's ids and distances copied once")
+        log(f"admission: ServiceModel from 32 of phase 4's queries: "
+            f"{model.per_query_us} us a query + {model.base_us} us a cut, so "
+            f"a batch of {self.MAX_BATCH} is served in "
+            f"{model.service_us(self.MAX_BATCH):.0f} modeled us; offered "
+            f"rate 0.8 of the modeled capacity = {rate:.3f} qps; deadlines "
+            f"arrival + U[2, 3] full-batch services; hot tenant bucket "
+            f"{self.hot_qps(rate):.3f} qps, burst 16; calibrated in "
+            f"{t_cal:.2f} s")
+        launches, reasons, deferred = {}, set(), 0
+        for name, trace in traces.items():
+            q = self.queue(model, rate)
+            build.reset_launches()
+            with self.profiled(name == "poisson") as prof:
+                t0 = sync_time(torch)
+                served, rep = q.run(trace)
+                wall = sync_time(torch, t0)
+            t_checks = time.perf_counter()
+            add_launches(launches, dict(build.LAUNCHES))
+            check(sorted(s.rid for s in served) == list(range(self.N_REQ)),
+                  f"admission ({name}): not every request served once")
+            for s in served:
+                row = s.rid % nq
+                check(np.array_equal(s.ids, want_ids[row])
+                      and np.array_equal(s.dists.view(np.int32),
+                                         want_d[row]),
+                      f"admission ({name}): rid {s.rid} != phase 4's row")
+                check(s.snapshot_version
+                      == rep.batches[s.batch_idx].snapshot_version,
+                      f"admission ({name}): a batch spans two snapshots")
+            self.conservation(name, q, served)
+            by = {}
+            for r in rep.batches:
+                by[r.reason] = by.get(r.reason, 0) + 1
+            reasons |= set(by)
+            late = sum(s.admit_us > s.arrival_us for s in served)
+            deferred += late
+            met = 1 - rep.deadline_misses / len(served)
+            lat = rep.latency
+            searched = sum(r.report.wall_s for r in rep.batches)
+            log(f"admission ({name}): {len(rep.batches)} batches {by}, "
+                f"sizes {[r.n for r in rep.batches]}; {late} grants "
+                f"deferred; deadline met {met:.4f}; modeled p50 "
+                f"{lat['p50']:.1f} p95 {lat['p95']:.1f} p99 {lat['p99']:.1f}"
+                f" us, makespan {rep.makespan_us:.1f} us, modeled QPS "
+                f"{rep.qps:.3f}; host wall of the queue run {wall:.3f} s "
+                f"({'profiled; ' if prof is not None else ''}of which the "
+                f"searcher's own batches {searched:.3f} s: search and "
+                f"fetch-trace replay); every row == phase 4's fused search "
+                f"bit for bit, "
+                f"one snapshot a batch; launches {dict(build.LAUNCHES)}")
+            if prof is not None:
+                device_busy(torch, prof, f"admission queue ({name})", None,
+                            wall)
+            log(f"admission ({name}): the gates"
+                f"{' and the profile' if prof is not None else ''} took "
+                f"{time.perf_counter() - t_checks:.2f} s")
+        check(reasons >= {"full", "deadline", "drain"},
+              f"admission: cut reasons {reasons}, not all three")
+        check(deferred > 0, "admission: no grant was deferred")
+        return launches
+
+    def conservation(self, name, q, served):
+        """Grants in any window <= rate * dt + burst, per tenant; each
+        tenant's grants equal its served requests."""
+        for tenant, bucket in q.buckets.items():
+            log_us = np.asarray(bucket.grant_log_us)
+            check(bucket.granted == sum(s.tenant == tenant for s in served),
+                  f"admission ({name}): tenant {tenant} grants != served")
+            if math.isinf(bucket.rate_qps) or not len(log_us):
+                continue
+            for i in range(len(log_us)):
+                n_win = np.arange(1, len(log_us) - i)
+                dt = log_us[i + 1:] - log_us[i]
+                check(bool((n_win <= bucket.rate_qps * dt / 1e6
+                            + bucket.burst + 1e-3).all()),
+                      f"admission ({name}): tenant {tenant} over its bucket")
+
+    @staticmethod
+    @contextlib.contextmanager
+    def profiled(on: bool):
+        """torch.profiler around the block when ``on`` (the card's busy
+        share of that queue run: device events only, so a run of ~5,000
+        hops leaves no host-op trace to process), else nothing."""
+        if not on:
+            yield None
+            return
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            yield prof
 
 
 # -------------------------------------------------------------------- live
@@ -2082,6 +2557,88 @@ def time_kernels(torch, parity) -> dict:
     parity.shard_in = parity.cold = parity.beam_regimes = None
     parity.segments = None
     return times
+
+
+def autotune_hops(torch, shard, parity) -> None:
+    """Phase 5's autotune: the fused hop (the beam_step kernel) against
+    the unfused hop (pq_adc_batched by id, then the stable top-L merge:
+    beam.py's "off" branch) at the hop shapes of phases 4 and 4c (nq 1024,
+    32, 8) and 4d (nq 256), E = W x R ids (60% kept) into the shard's
+    codes, L = 200; device medians cycling fresh id sets. Recorded under
+    the card's key in build/autotune_cache.json; then auto-tuned resolves
+    from that file per bucket and a search under the resolved config
+    equals phase 4's rows."""
+    from repro_torch.core.search.beam import resolve_kernels, search
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.autotune import (AutotuneCache, bucket_key,
+                                              platform_key)
+    from repro_torch.kernels.beam_step.beam_step import stable_smallest
+    from repro_torch.kernels.dispatch import KernelConfig
+    cfg = KernelConfig()
+
+    def fused(codes, luts, cand_ids, cand_d, new_ids):
+        return dispatch.beam_step(codes, luts, cand_ids, cand_d, new_ids,
+                                  cfg)[:2]
+
+    def unfused(codes, luts, cand_ids, cand_d, new_ids):
+        new_d = dispatch.pq_adc_batched(codes, luts, cfg, ids=new_ids)
+        merged = torch.cat([cand_ids, new_ids], 1)
+        d, top = stable_smallest(torch.cat([cand_d, new_d], 1),
+                                 cand_ids.shape[1])
+        return torch.gather(merged, 1, top), d
+
+    codes, n = shard.index.pq_codes, shard.n
+    L, E, M = shard.p.l_size, shard.p.beam_width * shard.R, shard.M
+    cache = AutotuneCache(platform_key(shard.dev))
+    luts_all = shard.luts()
+    nbytes = 1024 * (M * 256 * 4 + L * 8 + Parity.COLD_SETS * E * 4)
+    log(f"autotune: card bytes at most {nbytes / 1e6:.1f} MB a shape (LUTs, "
+        f"one candidate list, {Parity.COLD_SETS} id sets at nq=1024) beside "
+        f"the shard's codes; host bytes: the cache file")
+    parts, shapes = [], {}
+    for nq in (1024, 256, 32, 8):
+        luts = luts_all[torch.arange(nq, device=shard.dev)
+                        % len(luts_all)].contiguous()
+        cand_ids = parity.randint(n, nq, L, dtype=torch.int32)
+        cand_d, order = dispatch.pq_adc_batched(codes, luts, cfg,
+                                                ids=cand_ids).sort(1)
+        cand_ids = torch.gather(cand_ids, 1, order)
+        sets = [(codes, luts, cand_ids, cand_d.contiguous(),
+                 torch.where(torch.rand(nq, E, generator=parity.g,
+                                        device=shard.dev) < 0.6,
+                             parity.randint(n, nq, E), -1).to(torch.int32))
+                for _ in range(Parity.COLD_SETS)]
+        a, b = fused(*sets[0]), unfused(*sets[0])
+        check(bits_equal(torch, a[0], b[0]) and bits_equal(torch, a[1], b[1]),
+              f"autotune nq={nq}: fused and unfused hops differ")
+        ms = {"cuda": cuda_ms(torch, [lambda s=s: fused(*s) for s in sets]),
+              "off": cuda_ms(torch, [lambda s=s: unfused(*s) for s in sets])}
+        dims = dict(nq=nq, e=E, l=L, m=M)
+        for backend, t in ms.items():
+            cache.record("beam_step", backend, t * 1e3, **dims)
+        shapes[nq] = dims
+        parts.append(f"nq={nq}: fused {ms['cuda']:.4f} ms, unfused "
+                     f"{ms['off']:.4f} ms")
+    (ROOT / "build").mkdir(exist_ok=True)
+    path = cache.save(ROOT / "build" / "autotune_cache.json")
+    def resolved(dims):
+        return resolve_kernels(
+            shard.p._replace(kernels=KernelConfig(*["auto-tuned"] * 5)),
+            shard.dev, shapes={"beam_step": dims}, cache=path)
+    picks = [f"{cache.best('beam_step', dims)} -> beam_step="
+             f"{resolved(dims).kernels.beam_step!r} at "
+             f"{bucket_key('beam_step', **dims)}" for dims in shapes.values()]
+    p = resolved(dict(nq=shard.nq, e=E, l=L, m=M))
+    ids, dists, _ = search(shard.index, shard.queries, p)
+    check(bits_equal(torch, ids, shard.result[0])
+          and bits_equal(torch, dists, shard.result[1]),
+          "a search under the auto-tuned config != phase 4's")
+    log(f"autotune ({cache.platform}; hop E={E} ids 60% kept into the "
+        f"shard's codes, L={L}, M={M}; cycling {Parity.COLD_SETS} id sets): "
+        + "; ".join(parts) + f"; written to {path.relative_to(ROOT)}; "
+        f"auto-tuned picks: " + "; ".join(picks) + f"; the search under "
+        f"the config resolved at nq={shard.nq} (beam_step="
+        f"{p.kernels.beam_step!r}) == phase 4's rows")
 
 
 def report(parity, launches, times):

@@ -1,21 +1,46 @@
-"""Sharded ANNS, host half — the port of the partitioning, building and
-routing parts of ``repro.core.distributed.sharded_index``.
+"""Sharded ANNS over 8-32 shards — the port of
+``repro.core.distributed.sharded_index``.
 
 The dataset is partitioned — contiguous id ranges or balanced k-means
 clusters — into one Vamana sub-graph + PQ codes per shard, stacked on a
-leading shard axis (:class:`ShardedIndex`). The serving tier
-(``serve/ann.py``) fans a query batch out shard by shard on one device and
-merges the per-shard top-K on the host.
+leading shard axis (:class:`ShardedIndex`). A query batch is replicated;
+each shard runs the batch-first beam search (``search_batched``), then the
+per-shard top-K candidates meet in one of two merges
+(:func:`make_sharded_search`):
+
+- **flat**: one all-gather of K rows per shard + a global top-K over the
+  K·S gathered candidates (gathered rows grow linearly in S);
+- **hierarchical** (default): a butterfly merge per mesh axis, innermost
+  axis first — each of the log2(S_axis) steps exchanges only K
+  already-reduced rows with the XOR partner, so a shard receives
+  K·Σ log2(S_axis) rows instead of K·S (:func:`merge_comm_rows`).
+  Axes whose size is not a power of two take the flat merge for that axis
+  only.
+
+The reference runs this as one ``shard_map`` program. Here it is a
+per-shard program over a small exchange (all-gather, XOR-partner swap) with
+two forms of :class:`Mesh`, which run the same steps and give the same rows
+bit for bit:
+
+- **stacked** (:func:`make_mesh`): all S shards on one device, searched one
+  after another; the all-gather is the stacked tensor itself and the swap
+  an ``index_select`` along the shard axis. This is the form one GPU runs.
+- **process group** (:func:`make_process_mesh`): one shard per rank of a
+  ``torch.distributed`` process group (NCCL on GPUs, gloo on the CPU), one
+  subgroup per mesh axis; the all-gather is ``all_gather_into_tensor`` and
+  the swap ``batch_isend_irecv`` with the partner.
 
 **Selective shard routing** (SPANN's closest-posting-list pruning): a
 replicated :class:`ShardRouter` — per-shard k-means centroids over the
 shard's own rows — scores shards per query; only the top
-``ceil(route_frac * S)`` shards keep their candidates. Routing only
-preserves recall when the partition is *clustered* (``partition="cluster"``).
+``ceil(route_frac * S)`` shards keep their candidates, the rest contribute
+(-1, +inf) rows. Routing only preserves recall when the partition is
+*clustered* (``partition="cluster"``).
 
 Local ids translate to global ids through ``ShardedIndex.row_ids`` (-1 marks
 the pad rows that fill the last shard to a uniform size), so pad rows are
-masked out of every merge.
+masked out of every merge. The serving tier (``serve/ann.py``) fans a batch
+out shard by shard on one device and merges on the host instead.
 """
 from __future__ import annotations
 
@@ -26,7 +51,8 @@ import torch
 
 from ...kernels.beam_step.beam_step import stable_smallest
 from ..index import build_device_index
-from ..search.beam import resolve_device
+from ..search.beam import (DeviceIndex, SearchParams, resolve_device,
+                           resolve_kernels, search_batched)
 
 
 class ShardedIndex(NamedTuple):
@@ -198,3 +224,280 @@ def route_mask(centroids, queries, route_frac: float) -> torch.Tensor:
     _, idx = stable_smallest(score, m)                        # [Q, m]
     return torch.zeros((queries.shape[0], s), dtype=torch.bool,
                        device=centroids.device).scatter_(1, idx, True)
+
+
+# ------------------------------------------------------------------- meshes
+class Mesh(NamedTuple):
+    """The shard axes of a sharded search, row-major: ``axis_names`` with
+    ``axis_sizes`` (S shards, their product). ``groups`` None is the
+    stacked form: all S shards on ``device`` in one process. Otherwise the
+    process-group form: this process holds shard ``rank`` (its coordinates
+    row-major over the axes) and ``groups[a]`` is the subgroup of the ranks
+    that differ from it only along axis a, in coordinate order."""
+    axis_names: tuple
+    axis_sizes: tuple
+    device: torch.device
+    groups: tuple | None = None
+    rank: int = 0
+
+    @property
+    def n_shards(self) -> int:
+        return int(np.prod(self.axis_sizes))
+
+
+def _axes(axis_sizes, axis_names) -> tuple[tuple, tuple]:
+    sizes = tuple(int(s) for s in np.atleast_1d(axis_sizes))
+    names = (axis_names,) if isinstance(axis_names, str) \
+        else tuple(axis_names)
+    if len(sizes) != len(names) or min(sizes) < 1:
+        raise ValueError(f"mesh axes {names} do not match sizes {sizes}")
+    return sizes, names
+
+
+def make_mesh(axis_sizes, axis_names=("data",), device=None) -> Mesh:
+    """The stacked form: S = prod(axis_sizes) shards on one ``device``
+    (None = the card), searched one after another in this process."""
+    sizes, names = _axes(axis_sizes, axis_names)
+    return Mesh(names, sizes, resolve_device(device))
+
+
+def make_process_mesh(axis_sizes, axis_names=("data",),
+                      device=None) -> Mesh:
+    """The process-group form: one shard per rank of the initialised
+    default process group (its world size must be S), on ``device``
+    (None = the card of index ``rank % device_count``). Every rank calls
+    it, in the same order: it creates one subgroup per line of each axis."""
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        raise RuntimeError("make_process_mesh needs an initialised "
+                           "process group (torch.distributed."
+                           "init_process_group)")
+    sizes, names = _axes(axis_sizes, axis_names)
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if world != int(np.prod(sizes)):
+        raise ValueError(f"a mesh of {sizes} needs {int(np.prod(sizes))} "
+                         f"ranks, the process group has {world}")
+    if device is None:
+        resolve_device(None)                    # raises without a card
+        device = torch.device("cuda", rank % torch.cuda.device_count())
+    coords = np.arange(world).reshape(sizes)
+    groups = []
+    for a, size in enumerate(sizes):
+        mine = None
+        for line in np.moveaxis(coords, a, -1).reshape(-1, size):
+            group = dist.new_group([int(r) for r in line])
+            if rank in line:
+                mine = group
+        groups.append(mine)
+    return Mesh(names, sizes, torch.device(device), tuple(groups), rank)
+
+
+def place_on_mesh(index: ShardedIndex, mesh: Mesh) -> ShardedIndex:
+    """The shards this process holds, on the mesh's device: all of them in
+    the stacked form, shard ``rank`` (a leading axis of 1) in the
+    process-group form."""
+    if mesh.groups is None:
+        return ShardedIndex(*(t.to(mesh.device) for t in index))
+    r = mesh.rank
+    return ShardedIndex(*(t[r:r + 1].to(mesh.device) for t in index))
+
+
+class _StackedExchange:
+    """The exchange of the stacked form: [S, ...] tensors on one device,
+    shard s at coordinates ``unravel(s, sizes)``; each exchange is one
+    ``index_select`` along the shard axis."""
+
+    def __init__(self, sizes: tuple, device: torch.device):
+        self.sizes = sizes
+        self.flat = torch.arange(int(np.prod(sizes)), device=device)
+
+    def _coord(self, a: int):
+        stride = int(np.prod(self.sizes[a + 1:]))
+        return (self.flat // stride) % self.sizes[a], stride
+
+    def all_gather(self, x, a: int):
+        """[S, ...] -> [S, size_a, ...]: each shard gets the rows of every
+        shard on its line along axis a, in coordinate order."""
+        c, stride = self._coord(a)
+        size = self.sizes[a]
+        j = torch.arange(size, device=c.device)
+        idx = self.flat[:, None] + (j[None] - c[:, None]) * stride
+        return x.index_select(0, idx.reshape(-1)).reshape(
+            (len(self.flat), size) + x.shape[1:])
+
+    def swap(self, x, a: int, step: int):
+        """[S, ...] -> [S, ...]: each shard gets its XOR partner's rows
+        (coordinate c -> c ^ step along axis a)."""
+        c, stride = self._coord(a)
+        return x.index_select(0, self.flat + ((c ^ step) - c) * stride)
+
+
+class _GroupExchange:
+    """The exchange of the process-group form: [1, ...] tensors, one shard
+    per rank, one subgroup per axis."""
+
+    def __init__(self, mesh: Mesh):
+        self.mesh = mesh
+
+    def all_gather(self, x, a: int):
+        import torch.distributed as dist
+        x = x.contiguous()
+        out = x.new_empty((self.mesh.axis_sizes[a],) + x.shape[1:])
+        dist.all_gather_into_tensor(out, x, group=self.mesh.groups[a])
+        return out[None]
+
+    def swap(self, x, a: int, step: int):
+        import torch.distributed as dist
+        group = self.mesh.groups[a]
+        me = dist.get_group_rank(group, self.mesh.rank)
+        peer = dist.get_global_rank(group, me ^ step)
+        x = x.contiguous()
+        buf = torch.empty_like(x)
+        for work in dist.batch_isend_irecv(
+                [dist.P2POp(dist.isend, x, peer, group),
+                 dist.P2POp(dist.irecv, buf, peer, group)]):
+            work.wait()
+        return buf
+
+
+# ------------------------------------------------------------------- merges
+def merge_comm_rows(k: int, axis_sizes, mode: str = "hier") -> int:
+    """(id, dist) rows RECEIVED per shard during the merge — the comm model
+    that ``engine.shard_merge_cost_us`` prices. flat: K·S. hier:
+    K·Σ log2(axis) (butterfly), non-power-of-two axes priced flat for that
+    axis."""
+    sizes = [int(s) for s in (axis_sizes if np.ndim(axis_sizes) else
+                              [axis_sizes])]
+    if mode == "flat":
+        return k * int(np.prod(sizes))
+    rows = 0
+    for s in sizes:
+        if s <= 1:
+            continue
+        rows += k * s if s & (s - 1) else k * int(round(np.log2(s)))
+    return rows
+
+
+def _lex_topk(ids, d, k):
+    """[..., M] candidates -> top-k by (distance, id) lexicographic order —
+    the deterministic tie-break every merge stage shares, so the final
+    top-K is independent of merge topology (flat vs tree, any axis order).
+    Pad rows (id -1, dist +inf) sink to the tail. Two stable sorts: by id
+    (-1 as INT32_MAX), then by distance."""
+    big = torch.iinfo(torch.int32).max
+    order = torch.sort(torch.where(ids < 0, big, ids), dim=-1,
+                       stable=True).indices
+    ids, d = ids.gather(-1, order), d.gather(-1, order)
+    order = torch.sort(d, dim=-1, stable=True).indices
+    return ids.gather(-1, order)[..., :k], d.gather(-1, order)[..., :k]
+
+
+def _pack(ids, d):
+    """(ids, dists) -> one int32 tensor (the dists' bits), one exchange."""
+    return torch.cat([ids, d.view(torch.int32)], -1)
+
+
+def _unpack(rows, k):
+    return rows[..., :k], rows[..., k:].view(torch.float32)
+
+
+def _merge_axis_flat(ids, d, ex, a, k):
+    rows = ex.all_gather(_pack(ids, d), a)              # [S, s, Q, 2K]
+    all_i, all_d = _unpack(rows, ids.shape[-1])
+    s, _, q = all_i.shape[:3]
+    return _lex_topk(all_i.transpose(1, 2).reshape(s, q, -1),
+                     all_d.transpose(1, 2).reshape(s, q, -1), k)
+
+
+def _merge_axis_tree(ids, d, ex, a, size, k):
+    """Butterfly (recursive-doubling) top-K on one mesh axis: log2(size)
+    steps with the XOR partner, each exchanging only the K already-reduced
+    rows; afterwards every shard on the axis holds the identical
+    axis-global top-K."""
+    step = 1
+    while step < size:
+        o_ids, o_d = _unpack(ex.swap(_pack(ids, d), a, step), ids.shape[-1])
+        ids, d = _lex_topk(torch.cat([ids, o_ids], -1),
+                           torch.cat([d, o_d], -1), k)
+        step *= 2
+    return ids, d
+
+
+def merge_sharded(gids, dists, mesh: Mesh, k: int, merge: str = "hier"):
+    """The merge of :func:`make_sharded_search`: [S_here, Q, K] global ids
+    (int32) + distances of the shards this process holds (all S stacked,
+    or one a rank) -> the global top-``k`` [Q, k], the same on every shard.
+    Innermost (last) axis first: candidates are reduced to K per node
+    before any cross-node exchange."""
+    if merge not in ("hier", "flat"):
+        raise ValueError(f"merge must be 'hier' or 'flat', got {merge!r}")
+    ex = _StackedExchange(mesh.axis_sizes, gids.device) \
+        if mesh.groups is None else _GroupExchange(mesh)
+    for a in reversed(range(len(mesh.axis_sizes))):
+        size = mesh.axis_sizes[a]
+        if merge == "hier" and size & (size - 1) == 0:
+            gids, dists = _merge_axis_tree(gids, dists, ex, a, size, k)
+        else:
+            gids, dists = _merge_axis_flat(gids, dists, ex, a, k)
+    return gids[0], dists[0]
+
+
+def shard_topk(index: ShardedIndex, queries: torch.Tensor, p: SearchParams):
+    """Each held shard's local search (``search_batched``, one shard after
+    another) with its ids made global -> ([S_here, Q, K] int32 global ids,
+    [S_here, Q, K] distances). Pad rows (row_id -1) and empty result slots
+    land at (-1, +inf), so they never outrank a real candidate."""
+    out_i, out_d = [], []
+    for i in range(index.pq_codes.shape[0]):
+        local = DeviceIndex(
+            neighbors=index.neighbors[i], counts=index.counts[i],
+            ef_slots=index.ef_slots[i], pq_codes=index.pq_codes[i],
+            pq_centroids=index.pq_centroids[i], vectors=index.vectors[i],
+            medoid=index.medoid[i])
+        ids, dists, _ = search_batched(local, queries, p, queries.device)
+        rids = index.row_ids[i]
+        gids = torch.where(
+            ids >= 0, rids[ids.clamp(0, rids.shape[0] - 1).long()], -1)
+        out_i.append(gids)
+        out_d.append(torch.where(gids >= 0, dists, torch.inf))
+    return torch.stack(out_i), torch.stack(out_d)
+
+
+def make_sharded_search(mesh: Mesh, p: SearchParams, merge: str = "hier",
+                        router: ShardRouter = None, route_frac: float = 1.0):
+    """-> search(index, queries [Q, d]) -> (ids [Q, K] int32, dists [Q, K]),
+    where ``index`` is :func:`place_on_mesh`'s: local search
+    (:func:`shard_topk`) -> routing mask -> :func:`merge_sharded`.
+
+    The shards lie row-major over the mesh's axes (the reference's
+    ``axis``). ``merge="hier"`` runs the butterfly merge per axis,
+    innermost first; ``"flat"`` is the K·S all-gather. With a
+    ``router``, each query's candidates are masked to its top
+    ``ceil(route_frac * S)`` shards before the merge (``route_frac=1.0``
+    is bit-identical to no router). In the process-group form every rank
+    calls the search with the same queries and gets the same rows.
+    """
+    if merge not in ("hier", "flat"):
+        raise ValueError(f"merge must be 'hier' or 'flat', got {merge!r}")
+    # Config time: kernel requests resolve once, for the mesh's device, so
+    # no per-shard search consults the platform.
+    p = resolve_kernels(p, mesh.device)
+    stacked = mesh.groups is None
+    cents = None if router is None else \
+        torch.as_tensor(router.centroids).to(mesh.device)
+    mine = torch.arange(mesh.n_shards, device=mesh.device) if stacked \
+        else torch.tensor([mesh.rank], device=mesh.device)
+
+    def run(index: ShardedIndex, queries):
+        held = index.pq_codes.shape[0]
+        if held != (mesh.n_shards if stacked else 1):
+            raise ValueError(f"index holds {held} shards; place it with "
+                             f"place_on_mesh for this mesh")
+        q = torch.as_tensor(queries, dtype=torch.float32).to(mesh.device)
+        gids, d = shard_topk(index, q, p)
+        if cents is not None:
+            keep = route_mask(cents, q, route_frac)[:, mine].T[..., None]
+            gids = torch.where(keep, gids, -1)
+            d = torch.where(keep, d, torch.inf)
+        return merge_sharded(gids, d, mesh, p.k, merge)
+    return run

@@ -32,7 +32,7 @@ import torch
 
 from ...kernels import dispatch
 from ...kernels.beam_step.beam_step import stable_smallest
-from ...kernels.dispatch import KernelConfig
+from ...kernels.dispatch import KernelConfig, resolve_device
 from ..graph.pq import build_lut_torch
 
 
@@ -88,20 +88,29 @@ class SearchStats(NamedTuple):
                                    # frontier ids (empty unless trace_hints)
 
 
-def resolve_device(device=None) -> torch.device:
-    """``None`` -> the CUDA device (raise if there is none); else the
-    device given. Entry points run on the card unless told otherwise."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device: pass device='cpu' to run "
-                               "the plain PyTorch path on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
-
-
-def resolve_kernels(p: SearchParams) -> SearchParams:
-    """Fill ``p.kernels`` (None -> all ``auto``) and check its values."""
+def check_kernels(p: SearchParams) -> SearchParams:
+    """Fill ``p.kernels`` (None -> all ``auto``) and check its values: the
+    search's own check. An ``auto-tuned`` entry raises here, since it
+    resolves only at config time (:func:`resolve_kernels`)."""
     k = (p.kernels or KernelConfig()).check()
+    if "auto-tuned" in k:
+        raise RuntimeError(
+            "unresolved 'auto-tuned' kernel request: resolve the config "
+            "once at config time (resolve_kernels, KernelConfig.resolve)")
+    return p if k == p.kernels else p._replace(kernels=k)
+
+
+def resolve_kernels(p: SearchParams, device=None, shapes: dict | None = None,
+                    cache=None) -> SearchParams:
+    """Fill ``p.kernels`` (None -> all ``auto``) and check its values; an
+    ``auto-tuned`` entry resolves here, once, for tensors on ``device``
+    (None = the card) per (op, shape-bucket) from the autotune cache
+    (``shapes``: op name -> dims dict, as the reference takes it;
+    ``cache``: an ``AutotuneCache`` or its path, None = the committed
+    one)."""
+    k = (p.kernels or KernelConfig()).check()
+    if "auto-tuned" in k:
+        k = k.resolve(resolve_device(device), shapes, cache)
     return p if k == p.kernels else p._replace(kernels=k)
 
 
@@ -354,7 +363,7 @@ def search_batched(index: DeviceIndex, queries, p: SearchParams,
     """Batch-first search core: queries [nq, d] -> (ids [nq, K] int32,
     dists [nq, K] float32, SearchStats of [nq])."""
     queries = _on_device(index, queries, device)
-    p = resolve_kernels(p)
+    p = check_kernels(p)
     luts = build_lut_torch(queries, index.pq_centroids)
     cand_ids, cand_d, (iters, fetched, pf_iter, pq_ct, trace, hints) = \
         traverse(index, luts, p)
@@ -384,7 +393,7 @@ def search_candidates(index: DeviceIndex, queries, p: SearchParams,
     (cand_ids [nq, L], pq_dists [nq, L]), -1 = empty slot: the §3.5 insert
     path's candidate pool. Distances are PQ (ADC) approximations."""
     queries = _on_device(index, queries, device)
-    p = resolve_kernels(p)
+    p = check_kernels(p)
     luts = build_lut_torch(queries, index.pq_centroids)
     cand_ids, cand_d, _ = traverse(index, luts, p)
     return cand_ids, cand_d

@@ -45,7 +45,7 @@ import torch
 from ...kernels import dispatch
 from ..graph.pq import PQCodebook, encode_pq
 from ..graph.vamana import robust_prune
-from ..search.beam import (SearchParams, resolve_device, resolve_kernels,
+from ..search.beam import (SearchParams, check_kernels, resolve_device,
                            search, search_candidates)
 from ..search.engine import merge_cost_us, merge_topk, op_backend
 from ..storage.blockstore import BlockStore
@@ -484,7 +484,7 @@ def snapshot_search(snap: Snapshot, queries: np.ndarray, p: SearchParams,
     buffered inserts, merged by the serving tier's top-K merge. ``p`` must
     carry the snapshot's EF universe."""
     queries = np.asarray(queries, np.float32)
-    p = resolve_kernels(p)
+    p = check_kernels(p)
     ids, dists, _ = search(snap.device, queries, p, device)
     gids = ids.cpu().numpy().astype(np.int64)
     gd = dists.cpu().numpy().astype(np.float32)

@@ -12,9 +12,12 @@ backend of every op is decided by where its tensors are:
 ``"auto"`` (backend from the tensors' device); ``beam_step`` may also be
 ``"off"``, which selects the unfused op composition in the hot path
 (``core/search/beam.py`` branches on it before calling dispatch). So no
-config can put a plain version on a CUDA tensor. An unknown request, a
-device with no backend, or an unresolved backend reaching ``get_impl``
-raises.
+config can put a plain version on a CUDA tensor. ``"auto-tuned"`` is
+resolved once, at config time (``KernelConfig.resolve``), from the
+measured autotune cache (``autotune.py``) of the device's platform: to
+``"off"`` where the unfused composition measured faster (``beam_step``
+only), else to ``"auto"``. An unknown request, a device with no backend, or
+an unresolved backend reaching ``get_impl`` raises.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ from typing import Callable, NamedTuple
 import torch
 
 BACKENDS = ("ref", "cuda")
-REQUESTED = ("auto", "off")
+REQUESTED = ("auto", "auto-tuned", "off")
 
 
 class KernelConfig(NamedTuple):
@@ -43,6 +46,47 @@ class KernelConfig(NamedTuple):
         for op, requested in zip(self._fields, self):
             resolve_backend(requested, None, op)
         return self
+
+    def resolve(self, device, shapes: dict | None = None,
+                cache=None) -> "KernelConfig":
+        """Map every ``auto-tuned`` entry to ``auto`` or ``off`` for tensors
+        on ``device``, per (op, shape-bucket): ``shapes`` maps an op name to
+        its dims dict (without it the op's majority-winner bucket decides).
+        ``cache`` is an ``autotune.AutotuneCache`` or a path to one (None:
+        the committed cache); a cache of another platform counts as empty,
+        and an empty cache resolves like ``auto``. Idempotent; a config
+        without ``auto-tuned`` is returned as it is."""
+        self.check()
+        if "auto-tuned" not in self:
+            return self
+        from . import autotune
+        dev = torch.device(device)
+        key = autotune.platform_key(dev)
+        if not isinstance(cache, autotune.AutotuneCache):
+            cache = autotune.AutotuneCache.load(cache, platform=key)
+        elif cache.platform != key:
+            cache = autotune.AutotuneCache(key)
+        shapes = shapes or {}
+        fallback = resolve_backend("auto", dev)
+        out = []
+        for op, requested in zip(self._fields, self):
+            if requested == "auto-tuned":
+                best = cache.best(op, shapes.get(op), fallback=fallback)
+                requested = "off" if best == "off" and op == "beam_step" \
+                    else "auto"
+            out.append(requested)
+        return KernelConfig(*out)
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` -> the CUDA device (raise if there is none); else the
+    device given. Entry points run on the card unless told otherwise."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: pass device='cpu' to run "
+                               "the plain PyTorch path on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
 
 
 def default_config() -> KernelConfig:
@@ -66,6 +110,11 @@ def resolve_backend(requested: str, device: torch.device | None,
         return "off"
     if device is None:
         return requested
+    if requested == "auto-tuned":
+        raise RuntimeError(
+            f"unresolved 'auto-tuned' request for op {op!r}: resolve the "
+            "config at config time first (KernelConfig.resolve, "
+            "core/search/beam.py resolve_kernels)")
     if device.type == "cuda":
         return "cuda"
     if device.type == "cpu":

@@ -144,10 +144,16 @@ class BatchReport:
     component_cache: dict = field(default_factory=dict)  # shard -> hit/miss
     storage_bytes: dict = field(default_factory=dict)    # live mode: bytes
                                     # per component of the pinned snapshot
-    # Filled when asked (tenants, per-query latency):
+    # Admission-tier fields (serve/admission.py fills the queue ones after
+    # the cut; the searcher fills tenants/per-query latency when asked):
     tenants: dict = field(default_factory=dict)   # tenant -> rows in batch
     per_query_latency_us: list = field(default_factory=list)  # modeled, per
                                     # row (arrival order)
+    cut_us: float = -1.0            # simulated clock at batch cut
+    cut_reason: str = ""            # "full" | "deadline" | "drain"
+    queue_wait_us_mean: float = 0.0  # arrival -> cut, averaged over rows
+    queue_wait_us_max: float = 0.0
+    slack_min_us: float = 0.0       # tightest modeled slack at the cut
 
 
 def _peel_cost(remaining: int, buckets: list) -> tuple:
@@ -253,7 +259,7 @@ class BatchedSearcher:
         # Config time: check the per-op kernel requests once; the I/O model
         # prices compute at the backends they resolve to on this device
         # (ref on the CPU, cuda on the card).
-        p = resolve_kernels(p)
+        p = resolve_kernels(p, self.device)
         self.p = p
         self.cfg = cfg
         # Decompressions split per tier: graph-list decode prices at the

@@ -812,3 +812,79 @@ def test_uint8_live_merge_on_card_matches_cpu(cuda):
     got, want = (idx[n].search_batch(q, k=5) for n in ("card", "cpu"))
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("merge", ["hier", "flat"])
+@pytest.mark.cuda
+def test_stacked_sharded_search_on_card_matches_cpu(cuda, merge):
+    """make_sharded_search's stacked form, S = 8 shards on the card,
+    equals the same search on the CPU bit for bit, hier and flat alike,
+    routed at 1.0 and 0.5 too; every shard's search runs the kernels."""
+    from repro_torch.core.distributed.sharded_index import (
+        build_router, build_sharded_index, make_mesh, make_sharded_search,
+        place_on_mesh)
+    vecs = make_vector_dataset("prop-like", 400, 16, seed=8)
+    on_cpu, per = build_sharded_index(vecs, 8, r=12, l_build=24, pq_m=4,
+                                      partition="cluster", device="cpu")
+    router = build_router(on_cpu, c=3)
+    queries = make_queries("prop-like", 12, 16)
+    p = SearchParams(l_size=32, k=5, rerank_batch=5, r_max=12,
+                     universe=per, max_iters=64)
+    meshes = {"card": make_mesh((8,), device=cuda),
+              "cpu": make_mesh((8,), device="cpu")}
+    for kw in ({}, dict(router=router, route_frac=1.0),
+               dict(router=router, route_frac=0.5)):
+        build.reset_launches()
+        rows = {n: make_sharded_search(m, p, merge=merge, **kw)(
+            place_on_mesh(on_cpu, m), queries) for n, m in meshes.items()}
+        assert build.LAUNCHES["beam_step"] > 0
+        assert build.LAUNCHES["rerank_l2"] >= 8
+        assert torch.equal(rows["card"][0].cpu(), rows["cpu"][0])
+        assert_bits_equal(rows["card"][1].cpu(), rows["cpu"][1])
+
+
+@pytest.mark.cuda
+def test_admission_on_card_matches_cpu(cuda):
+    """The admission queue over a BatchedSearcher on the card: the same
+    schedule (cuts, reasons, admit and depart µs), reports and served rows
+    as the queue over the same searcher on the CPU."""
+    from repro_torch.serve.admission import (AdmissionConfig,
+                                             AdmissionQueue, TenantConfig,
+                                             bursty_trace,
+                                             calibrate_service_model)
+    from repro_torch.serve.ann import BatchedSearcher, ServeConfig
+    vecs, on_cpu, _, _ = _serving_world(cuda)
+    on_card = DeviceIndex(*(None if t is None else t.to(cuda)
+                            for t in on_cpu))
+    queries = make_queries("prop-like", 37, 16)
+    p = SearchParams(l_size=32, beam_width=4, k=10, rerank_batch=10,
+                     r_max=12, universe=400, max_iters=64)
+    runs = {}
+    for name, index, dev in (("card", on_card, None),
+                             ("cpu", on_cpu, "cpu")):
+        def searcher():
+            return BatchedSearcher(index, p, ServeConfig(
+                buckets=(1, 8, 32), shared_budget=True), device=dev)
+        model = calibrate_service_model(searcher(), queries[:8])
+        trace = bursty_trace(queries, rate_qps=3000, n=60,
+                             tenants=("hot", "cold"), weights=(0.7, 0.3),
+                             deadline_us=4_000.0, deadline_jitter_us=8_000.0,
+                             seed=4)
+        runs[name] = AdmissionQueue(
+            searcher(), model, AdmissionConfig(max_batch=32,
+                                               align_buckets=True),
+            tenants={"hot": TenantConfig(rate_qps=1500, burst=4)}).run(trace)
+    (got, grep), (want, wrep) = runs["card"], runs["cpu"]
+    assert [(r.cut_us, r.reason, r.n, r.depart_us) for r in grep.batches] \
+        == [(r.cut_us, r.reason, r.n, r.depart_us) for r in wrep.batches]
+    for a, b in zip(grep.batches, wrep.batches):
+        _same_report(a.report, b.report)
+        assert a.report.cut_reason == b.report.cut_reason
+        assert a.report.slack_min_us == b.report.slack_min_us
+    assert len(got) == len(want) == 60
+    for a, b in zip(got, want):
+        assert (a.rid, a.admit_us, a.cut_us, a.depart_us) == \
+            (b.rid, b.admit_us, b.cut_us, b.depart_us)
+        np.testing.assert_array_equal(a.ids, b.ids)
+        np.testing.assert_array_equal(a.dists.view(np.int32),
+                                      b.dists.view(np.int32))

@@ -6,9 +6,10 @@ hot swap between served batches — each run on the reference and on the
 port; and the device view and the memtable side-scan against the
 reference's on the same inputs.
 
-The two hot-swap cases of the reference drive ``serve/admission.py``,
-which is not ported yet; here the same schedule (batches of 4, a publish
-landing between two cuts) is driven through ``BatchedSearcher`` directly.
+The two hot-swap cases of the reference drive ``serve/admission.py``;
+here the same schedule (batches of 4, a publish landing between two cuts)
+is driven through ``BatchedSearcher`` directly, and
+tests/test_torch_admission.py runs both cases through the port's queue.
 """
 import threading
 import zlib
