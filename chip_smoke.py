@@ -7,7 +7,7 @@ sharded merges and its admission queue), the §3.3 storage path and the
 R=128, PQ M=32, 512 MiB segments of 4 MiB chunks).
 
     python3 chip_smoke.py [--seed 0] [--n 31250000] [--prop-n 31250000]
-                          [--queries 1024]
+                          [--queries 1024] [--live-n 16777216]
 
 Phases (any fault exits non-zero; there is no CPU fallback):
 
@@ -122,11 +122,30 @@ Phases (any fault exits non-zero; there is no CPU fallback):
    shapes of phases 4, 4c and 4d, written under the card's key to
    build/autotune_cache.json and resolved from there (a search under the
    resolved config equals phase 4's rows), then the contract's last lines.
+6. lm — after 4d, with the shard and the live index freed: the LM serving
+   path (models/*, serve/engine.py, serve/rag.py). The ten archs'
+   reduce_configs in float32, card == CPU (prefill logits, greedy tokens);
+   internlm2-1.8b at full width in bfloat16 (1,889,110,016 params drawn
+   on the card from --seed) serving the launcher's 8 x 32-token prompts x
+   16 new tokens and 16 x 4,096 x 128 (the prefill_32k / decode_32k cells
+   cut to one card, the batch sized from a 2-request prefill's peak
+   memory): prefill and decode times, tokens/s, peak memory, the card's
+   busy share of 16 profiled decode steps after each batch's prompts (and
+   after 32-token prompts at the larger batch); gates: 8 decode steps equal
+   a prefill over the extended sequence (float32 and bfloat16) and a
+   float32 prefill on the card equals the host CPU's; then
+   RAGPipeline(batch=64) over 4,096 documents embedded from the model's
+   table, the four
+   search kernels held against their plain versions on the RAG index's own
+   tensors, 64 requests answered (retrieval ids and integer BatchReport
+   fields == a CPU BatchedSearcher's). Its kernel launches join the
+   report's counts.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -237,11 +256,15 @@ def main() -> int:
     launches.update(storage.run())
     launches["pq_encode"] = shard.build_launches["pq_encode"]
     add_launches(launches, Live(torch, shard, parity, args).run())  # 4d
+    del shard
+    t1 = time.time()
+    add_launches(launches, LMServe(torch, parity, args, smi).run())  # 6. lm
+    added["6"] = time.time() - t1
     kernels = report(parity, launches, times)              # 5. report
 
     log(f"chip_smoke: whole run {time.time() - t0:.1f} s, of which phase 4e "
         f"{added['4e']:.1f} s, 4f {added['4f']:.1f} s, the autotune "
-        f"{added['autotune']:.1f} s")
+        f"{added['autotune']:.1f} s, 6 (lm) {added['6']:.1f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -274,6 +297,37 @@ def prop_like_chunk(torch, dev, rows=8192, dim=128, seed=7):
     from repro_torch.data.synthetic import prop_like_torch
     x = prop_like_torch(rows, dim, seed, dev)
     return x.view(torch.uint8).reshape(rows, dim * 4)
+
+
+def hop_parity(par, label, codes, luts, ef_slots, vectors, queries, p,
+               r, universe) -> str:
+    """The search path's kernels on one index's own tensors, each against
+    its plain version (phase 2's bit-exact rule), at the hop shapes a
+    search gives them: the candidates' and the entry's ADC and the fused
+    hop over ``codes`` ([n, M]), ef_decode by id over ``ef_slots`` at (r,
+    universe), and the re-rank by id over ``vectors``. These launches are
+    not the path's. -> a description of the cases for the log."""
+    torch = par.torch
+    n, nq = codes.shape[0], luts.shape[0]
+    E, L = p.beam_width * r, p.l_size
+    cand_ids = par.table_ids(n, nq, L, "kept")
+    cand_d = par.compare("pq_adc_batched", f"{label} candidates by id",
+                         codes, luts, cand_ids)[0]
+    cand_d, order = cand_d.sort(1)
+    cand_ids = torch.gather(cand_ids, 1, order).contiguous()
+    par.compare("pq_adc_batched", f"{label} entry by id", codes, luts,
+                cand_ids[:, :1].contiguous())
+    par.compare("beam_step", f"{label} hop", codes, luts, cand_ids,
+                cand_d.contiguous(), par.table_ids(n, nq, E))
+    par.compare("ef_decode", f"{label} R={r} U={universe} by id", ef_slots,
+                r, universe, par.ef_ids(n, nq * p.beam_width))
+    par.compare("rerank_l2", f"{label} re-rank by id", queries, vectors,
+                par.table_ids(n, nq, p.rerank_batch, "kept"))
+    return (f"pq_adc_batched (candidates {nq}x{L}, entry), beam_step (hop "
+            f"{nq}x{E}, L={L}, M={codes.shape[1]}), ef_decode (R={r}, "
+            f"U={universe}, {nq * p.beam_width} ids) and rerank_l2 ({nq}x"
+            f"{p.rerank_batch} rows of [{n}, {vectors.shape[1]}] "
+            f"{str(vectors.dtype).removeprefix('torch.')})")
 
 
 class Parity:
@@ -1619,41 +1673,16 @@ class MeshSearch:
             f"{sync_time(torch, t0):.1f} s")
 
     def kernel_parity(self, s):
-        """The path's kernels on mesh shard ``s``'s own tensors, each
-        against its plain version (phase 2's bit-exact rule), at the hop
-        shapes the mesh search gives them: the candidates' and the entry's
-        ADC and the fused hop over the shard's PQ codes, ef_decode by id
-        over its EF slots at (R, the shard's universe), and the re-rank by
-        id over its uint8 vectors. These launches are not the path's."""
-        torch, par, shard = self.torch, self.parity, self.shard
-        index, p, per, R = self.index, self.p, self.per, shard.R
-        codes, vectors = index.pq_codes[s], index.vectors[s]
-        nq, E, L = shard.nq, p.beam_width * R, p.l_size
+        """The path's kernels on mesh shard ``s``'s own tensors (its PQ
+        codes, EF slots at the shard's universe, uint8 vectors) against
+        their plain versions (``hop_parity``)."""
+        shard, index = self.shard, self.index
         t0 = time.time()
-        luts = shard.luts()
-        cand_ids = par.table_ids(per, nq, L, "kept")
-        cand_d = par.compare("pq_adc_batched", f"mesh shard {s} candidates "
-                             "by id", codes, luts, cand_ids)[0]
-        cand_d, order = cand_d.sort(1)
-        cand_ids = torch.gather(cand_ids, 1, order).contiguous()
-        par.compare("pq_adc_batched", f"mesh shard {s} entry by id", codes,
-                    luts, cand_ids[:, :1].contiguous())
-        par.compare("beam_step", f"mesh shard {s} hop", codes, luts,
-                    cand_ids, cand_d.contiguous(), par.table_ids(per, nq, E))
-        par.compare("ef_decode", f"mesh shard {s} R={R} U={per} by id",
-                    index.ef_slots[s], R, per,
-                    par.ef_ids(per, nq * p.beam_width))
-        par.compare("rerank_l2", f"mesh shard {s} re-rank by id",
-                    shard.queries, vectors,
-                    par.table_ids(per, nq, p.rerank_batch, "kept"))
-        log(f"mesh parity: on shard {s}'s own tensors pq_adc_batched "
-            f"(candidates {nq}x{L}, entry), beam_step (hop {nq}x{E}, "
-            f"L={L}, M={codes.shape[1]}), ef_decode (R={R}, U={per}, "
-            f"{nq * p.beam_width} ids) and rerank_l2 ({nq}x"
-            f"{p.rerank_batch} rows of [{per}, {vectors.shape[1]}] "
-            f"{str(vectors.dtype).removeprefix('torch.')}) "
-            f"bit-exact against their plain versions "
-            f"({time.time() - t0:.1f} s)")
+        cases = hop_parity(self.parity, f"mesh shard {s}", index.pq_codes[s],
+                           shard.luts(), index.ef_slots[s], index.vectors[s],
+                           shard.queries, self.p, shard.R, self.per)
+        log(f"mesh parity: on shard {s}'s own tensors {cases} bit-exact "
+            f"against their plain versions ({time.time() - t0:.1f} s)")
 
     def run(self) -> dict:
         from repro_torch.core.distributed.sharded_index import (
@@ -2136,36 +2165,23 @@ class Live:
         return ids, rep, launched
 
     def kernel_parity(self, p, q, mem_ids):
-        """The live path's kernels on the live view's own tensors, each
-        against its plain version (phase 2's bit-exact rule): the entry and
-        the fused hop over the view's codes, ef_decode at the view's EF
-        universe, the re-rank over its float32 rows, and the memtable lane
-        (rerank_l2 by id, every query reading every buffered row). Then
-        the memtable side-scan on the card against the same scan on the
-        CPU, on the same snapshot."""
+        """The live path's kernels on the live view's own tensors (its
+        codes, EF slots at the view's universe, float32 rows) against their
+        plain versions (``hop_parity``), and the memtable lane (rerank_l2
+        by id, every query reading every buffered row). Then the memtable
+        side-scan on the card against the same scan on the CPU, on the
+        same snapshot."""
         from repro_torch.core.graph.pq import build_lut_torch
         from repro_torch.core.update.consistency import memtable_topk
         torch, par = self.torch, self.parity
         snap = self.idx.handle.current()
         view, universe = snap.device, snap.index_store.universe
-        n = view.pq_codes.shape[0]
-        nq, E = len(q), p.beam_width * self.R
+        nq = len(q)
         qt = torch.from_numpy(q).to(self.dev)
-        luts = build_lut_torch(qt, view.pq_centroids)
-        cand_ids = par.table_ids(n, nq, p.l_size, "kept")
-        cand_d = par.compare("pq_adc_batched", "live candidates by id",
-                             view.pq_codes, luts, cand_ids)[0]
-        cand_d, order = cand_d.sort(1)
-        cand_ids = torch.gather(cand_ids, 1, order).contiguous()
-        par.compare("pq_adc_batched", "live entry by id", view.pq_codes,
-                    luts, cand_ids[:, :1].contiguous())
-        par.compare("beam_step", "live hop", view.pq_codes, luts, cand_ids,
-                    cand_d.contiguous(), par.table_ids(n, nq, E))
-        par.compare("ef_decode", f"live U={universe} by id", view.ef_slots,
-                    self.R, universe, par.ef_ids(n, nq * p.beam_width))
-        par.compare("rerank_l2", "live re-rank by id, f32 rows", qt,
-                    view.vectors, par.table_ids(n, nq, p.rerank_batch,
-                                                "kept"))
+        cases = hop_parity(par, "live", view.pq_codes,
+                           build_lut_torch(qt, view.pq_centroids),
+                           view.ef_slots, view.vectors, qt, p, self.R,
+                           universe)
         mem = torch.from_numpy(np.stack(
             [snap.mem_rows[int(i)] for i in mem_ids])).to(self.dev)
         every = torch.arange(len(mem), dtype=torch.int32, device=self.dev)
@@ -2177,11 +2193,9 @@ class Live:
               and np.array_equal(got[1].view(np.int32),
                                  want[1].view(np.int32)),
               "memtable side-scan: card != CPU")
-        log(f"live parity: pq_adc_batched (candidates, entry), beam_step "
-            f"(hop {nq}x{E}, L={p.l_size}), ef_decode (U={universe}) and "
-            f"rerank_l2 (re-rank over [{n}, {self.D}] f32, memtable "
-            f"{nq}x{len(mem)}) on the live view bit-exact; the memtable "
-            f"side-scan on the card == on the CPU (ids, dists)")
+        log(f"live parity: {cases} and the memtable lane ({nq}x{len(mem)} "
+            f"by id) on the live view bit-exact; the memtable side-scan on "
+            f"the card == on the CPU (ids, dists)")
 
     def run(self) -> dict:
         from repro_torch.core.search.beam import SearchParams
@@ -2259,6 +2273,355 @@ class Live:
             check(total[name] > 0, f"{name} never launched on the live path")
         self.idx = None
         return total
+
+
+# ---------------------------------------------------------------------- lm
+LM_ARCH = "internlm2-1.8b"
+LM_PARAMS = 1_889_110_016       # the reference's count for LM_ARCH
+RAG_DOCS = 4096                 # phase 6's corpus (drawn as the launcher's)
+#: Phase 6's tolerances, from what an H100 measured (PERF.md §6). The
+#: float32 ones are about 10x the readings: a float32 decode step against a
+#: float32 prefill over the same tokens (1.06e-05), a float32 prefill on
+#: the card against the host CPU's (9.3e-06), and the reduced float32 archs
+#: card against CPU (9.1e-06; tests/test_torch_cuda.py holds the same).
+#: The bfloat16 one sits between a sound decode (0.082 from the prefill)
+#: and a decode into the prefill's own slots, which overwrites token 0
+#: (0.375 off): about 1.8x the first, 0.4x the second.
+LM_F32_ATOL = 1e-4
+LM_BF16_ATOL = 0.15
+LM_CARD_CPU_ATOL = 1e-4
+LM_REDUCED_ATOL = 1e-4
+
+
+def max_gap(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+class LMServe:
+    """Phase 6: the LM serving path (models/*, serve/engine.py,
+    serve/rag.py) on the card, after the shard and the live index are
+    freed. Every reduced arch card == CPU; internlm2-1.8b at full width in
+    bf16 serving the launcher's smoke traffic and a 4,096-token batch; the
+    decode-versus-prefill and card-versus-CPU gates; RAG over the model's
+    embeddings through BatchedSearcher, its kernels held against their
+    plain versions on the RAG index's own tensors."""
+
+    def __init__(self, torch, parity, args, smi):
+        self.torch, self.parity, self.seed = torch, parity, args.seed
+        self.smi = smi
+        self.dev = torch.device("cuda")
+
+    def run(self) -> dict:
+        torch = self.torch
+        torch.cuda.empty_cache()
+        log(f"lm: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated on "
+            f"the card at the phase's start; float32 matmuls without TF32 "
+            f"(allow_tf32 False), so the float32 attention runs on the CUDA "
+            f"cores")
+        self.reduced_archs()
+        from repro_torch.configs import get_config
+        from repro_torch.models.api import Model
+        from repro_torch.serve.engine import ServeEngine
+        model = Model.from_config(get_config(LM_ARCH))
+        check(model.n_params() == LM_PARAMS,
+              f"{LM_ARCH}: {model.n_params()} params != {LM_PARAMS}")
+        t0 = sync_time(torch)
+        params = model.init(self.seed)
+        log(f"lm: {LM_ARCH} at full width ({model.cfg.n_layers} layers, d "
+            f"{model.cfg.d_model}, {model.cfg.n_heads}/{model.cfg.n_kv_heads}"
+            f" heads, hd {model.cfg.head_dim}, d_ff {model.cfg.d_ff}, V "
+            f"{model.cfg.vocab}, {model.cfg.dtype}): {model.n_params():,} "
+            f"params, {torch.cuda.memory_allocated() / 1e9:.2f} GB, drawn on "
+            f"the card from seed {self.seed} in {sync_time(torch, t0):.1f} s")
+        engine = ServeEngine(model, params)
+        self.serve(engine, 8, 32, 16, "smoke traffic (the launcher's)")
+        self.big_batch(engine)
+        self.gates(model, params)
+        launches = self.rag(engine)
+        del engine, params
+        torch.cuda.empty_cache()
+        return launches
+
+    # -- every arch, reduced
+    def reduced_archs(self):
+        from repro_torch.configs import ARCHS, get_config, reduce_config
+        from repro_torch.data.synthetic import make_token_batch
+        from repro_torch.models.api import Model
+        from repro_torch.models.schema import tree_map
+        from repro_torch.serve.engine import ServeEngine
+        torch = self.torch
+        t0, errs, ties = time.perf_counter(), {}, {}
+        for arch in sorted(ARCHS):
+            model = Model.from_config(reduce_config(get_config(arch)))
+            cpu = model.init(self.seed, device="cpu")
+            card = tree_map(lambda t: t.to(self.dev), cpu)
+            toks = make_token_batch(model.cfg.vocab, 2, 16, seed=1)
+            frames = np.random.default_rng(1).normal(
+                size=(2, 8, model.cfg.frontend_dim)).astype(np.float32) \
+                if model.cfg.encoder_layers else None
+            batch = {"tokens": torch.from_numpy(toks).long()}
+            if frames is not None:
+                batch["frames"] = torch.from_numpy(frames)
+            with torch.no_grad():
+                want, _ = model.prefill(cpu, batch, attn_mode="dense")
+                got, _ = model.prefill(
+                    card, {k: v.to(self.dev) for k, v in batch.items()},
+                    attn_mode="dense")
+            errs[arch] = max_gap(got.cpu(), want)
+            check(errs[arch] <= LM_REDUCED_ATOL,
+                  f"{arch} reduced: card prefill {errs[arch]:.3e} from the "
+                  f"CPU's")
+            gen = ServeEngine(model, card).generate(toks, max_new=4,
+                                                    frontend=frames)
+            ties[arch] = float(ServeEngine(model, cpu, device="cpu")
+                               .greedy_margins(toks, gen, frames).max())
+            check(ties[arch] <= LM_REDUCED_ATOL, f"{arch} reduced: a card "
+                  f"greedy token {ties[arch]:.3e} below the CPU's best")
+        log(f"lm reduced: all {len(errs)} archs (reduce_config, float32, "
+            f"prefill 2x16 + 4 greedy decode steps) card == CPU: prefill "
+            f"logits within {max(errs.values()):.3e} (atol "
+            f"{LM_REDUCED_ATOL}; by arch "
+            f"{ {a: float(f'{e:.2e}') for a, e in errs.items()} }), greedy "
+            f"tokens the CPU's (largest accepted margin "
+            f"{max(ties.values()):.2e}) in {time.perf_counter() - t0:.1f} s")
+
+    # -- full width: traffic
+    def prefill(self, engine, toks):
+        """One prefill of ``toks`` [B, S] (no decode cache widened)."""
+        torch = self.torch
+        batch = {"tokens": torch.as_tensor(toks, device=self.dev).long()}
+        with torch.no_grad():
+            engine.model.prefill(engine.params, batch, attn_mode="dense")
+
+    def serve(self, engine, b, s, new, what):
+        """``b`` requests of ``s`` prompt tokens and ``new`` greedy tokens:
+        the prefill alone, then ``engine.generate``; the decode's time is
+        the difference. Then 16 decode steps after such a prefill,
+        profiled."""
+        from repro_torch.data.synthetic import make_token_batch
+        torch = self.torch
+        toks = make_token_batch(engine.model.cfg.vocab, b, s, seed=self.seed)
+        engine.generate(toks[:, :8], max_new=2)        # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        t0 = sync_time(torch)
+        self.prefill(engine, toks)
+        t_pre = sync_time(torch, t0)
+        t0 = sync_time(torch)
+        out = engine.generate(toks, max_new=new)
+        wall = sync_time(torch, t0)
+        t_dec = max(wall - t_pre, 0.0) / new
+        peak = torch.cuda.max_memory_allocated()
+        check(out.shape == (b, new) and ((out >= 0) &
+              (out < engine.model.cfg.vocab)).all(), f"{what}: bad tokens")
+        log(f"lm serve ({what}): {b} requests x {s} prompt tokens x {new} "
+            f"new, greedy: prefill {t_pre * 1e3:.1f} ms "
+            f"({b * s / t_pre:.0f} tokens/s), decode {t_dec * 1e3:.2f} ms a "
+            f"step ({b / t_dec:.1f} tokens/s), generate wall {wall:.3f} s; "
+            f"peak max_memory_allocated {peak / 1e9:.2f} GB; {self.card()}")
+        self.profile_decode(engine, b, s)
+        return out
+
+    def card(self) -> str:
+        return f"card {self.smi}"
+
+    def big_batch(self, engine):
+        """The prefill_32k / decode_32k cells cut to one card and the run's
+        time: 4,096 prompt tokens, 128 new, the batch sized from the peak
+        memory of a 2-request prefill."""
+        torch = self.torch
+        from repro_torch.data.synthetic import make_token_batch
+        s, new, want_b = 4096, 128, 16
+        toks = make_token_batch(engine.model.cfg.vocab, 2, s, seed=self.seed)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        self.prefill(engine, toks)
+        per_req = (torch.cuda.max_memory_allocated() - base) / 2
+        total = torch.cuda.get_device_properties(0).total_memory
+        fit = int((0.85 * total - base) // per_req)
+        b = max(1, min(want_b, fit))
+        log(f"lm sizing: a 2 x {s} prefill peaks {per_req / 1e9:.2f} GB a "
+            f"request above {base / 1e9:.2f} GB of params; {fit} requests "
+            f"fit in 85% of {total / 1e9:.1f} GB -> batch {b}")
+        log(f"reduced: lm prefill_32k/decode_32k cut to {b} requests x {s} "
+            f"prompt tokens x {new} new (cells: 32 x 32,768 prefill, 128 x "
+            f"32,768 decode) for one card and the run's time")
+        if b < want_b:
+            log(f"reduced: lm batch {b} < {want_b} (card memory)")
+        self.serve(engine, b, s, new, f"{b} x {s}")
+        self.profile_decode(engine, b, 32)     # the same batch, short context
+
+    def profile_decode(self, engine, b, s):
+        """The card's busy share of 16 decode steps after a prefill of
+        ``b`` x ``s`` tokens, profiled."""
+        from torch.profiler import ProfilerActivity, profile
+        from repro_torch.data.synthetic import make_token_batch
+        from repro_torch.serve.engine import widen_cache
+        torch, model, params = self.torch, engine.model, engine.params
+        toks = torch.from_numpy(make_token_batch(model.cfg.vocab, b, s,
+                                                 seed=self.seed)).to(self.dev)
+        with torch.no_grad():
+            logits, cache = model.prefill(params, {"tokens": toks.long()},
+                                          attn_mode="dense")
+            cache = widen_cache(model, cache, b, s + 16)
+            tok = logits[:, -1].argmax(-1)
+            pos = torch.full((b,), s, dtype=torch.long, device=self.dev)
+
+            def steps():
+                nonlocal cache, tok, pos
+                for _ in range(16):
+                    logits, cache = model.decode_step(params, cache,
+                                                      tok[:, None], pos)
+                    tok, pos = logits[:, -1].argmax(-1), pos + 1
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = sync_time(torch)
+                steps()
+                wall = sync_time(torch, t0)
+        device_busy(torch, prof, f"16 decode steps after {b} x {s} "
+                    f"prompt tokens, {LM_ARCH}", None, wall)
+
+    # -- full width: gates
+    def gates(self, model, params):
+        """Gate 1: each of 8 decode steps equals a prefill over the extended
+        sequence (4 prompts of 32 tokens), in float32 and in bfloat16; a
+        decode into the prefill's own 32 slots (the reference's engine) is
+        printed beside it. Gate 2: a float32 prefill of 2 x 32 on the card
+        equals the same prefill on the host CPU."""
+        from repro_torch.data.synthetic import make_token_batch
+        from repro_torch.models.schema import tree_map
+        from repro_torch.serve.engine import widen_cache
+        torch = self.torch
+        ext = torch.from_numpy(make_token_batch(model.cfg.vocab, 4, 40,
+                                                seed=self.seed + 1)
+                               ).long().to(self.dev)
+        f32 = tree_map(lambda t: t.float(), params)
+        f32_model = type(model).from_config(
+            dataclasses.replace(model.cfg, dtype="float32"))
+        gaps = {}
+        with torch.no_grad():
+            for name, m, p in (("float32", f32_model, f32),
+                               ("bfloat16", model, params)):
+                _, cache = m.prefill(p, {"tokens": ext[:, :32]},
+                                     attn_mode="dense")
+                narrow = cache
+                cache = widen_cache(m, cache, 4, 40)
+                pos = torch.full((4,), 32, dtype=torch.long, device=self.dev)
+                worst = 0.0
+                for i in range(8):
+                    tok = ext[:, 32 + i:33 + i]
+                    got, cache = m.decode_step(p, cache, tok, pos)
+                    want, _ = m.prefill(p, {"tokens": ext[:, :33 + i]},
+                                        attn_mode="dense")
+                    worst = max(worst, max_gap(got, want))
+                    if i == 0:
+                        faulty = max_gap(m.decode_step(p, narrow, tok,
+                                                       pos)[0], want)
+                    pos = pos + 1
+                gaps[name] = (worst, faulty)
+            check(gaps["float32"][0] <= LM_F32_ATOL,
+                  f"float32 decode {gaps['float32'][0]:.3e} from the prefill")
+            check(gaps["bfloat16"][0] <= LM_BF16_ATOL,
+                  f"bfloat16 decode {gaps['bfloat16'][0]:.3e} from the "
+                  f"prefill")
+            two = {"tokens": ext[:2, :32]}
+            on_card, _ = f32_model.prefill(f32, two, attn_mode="dense")
+            t0 = time.perf_counter()
+            host = tree_map(lambda t: t.cpu(), f32)
+            on_cpu, _ = f32_model.prefill(
+                host, {"tokens": two["tokens"].cpu()}, attn_mode="dense")
+            t_cpu = time.perf_counter() - t0
+            card_cpu = max_gap(on_card.cpu(), on_cpu)
+            check(card_cpu <= LM_CARD_CPU_ATOL,
+                  f"float32 prefill: card {card_cpu:.3e} from the CPU")
+        del f32, host
+        torch.cuda.empty_cache()
+        log(f"lm gates ({LM_ARCH}, full width): decode vs a prefill over the "
+            f"extended sequence, 4 x 32 prompt + 8 steps: float32 max "
+            f"{gaps['float32'][0]:.3e} (atol {LM_F32_ATOL}), bfloat16 max "
+            f"{gaps['bfloat16'][0]:.3e} (atol {LM_BF16_ATOL}); a decode into "
+            f"the prefill's own 32 slots (token 0 overwritten) is "
+            f"{gaps['float32'][1]:.3e} / {gaps['bfloat16'][1]:.3e} off; "
+            f"float32 prefill 2 x 32 card vs host CPU max {card_cpu:.3e} "
+            f"(atol {LM_CARD_CPU_ATOL}; the CPU's copy + prefill "
+            f"{t_cpu:.1f} s)")
+
+    # -- RAG
+    def rag(self, engine) -> dict:
+        from repro_torch.core.graph.pq import build_lut_torch
+        from repro_torch.core.search.beam import DeviceIndex
+        from repro_torch.data.synthetic import make_token_batch
+        from repro_torch.kernels import build
+        from repro_torch.serve.ann import BatchedSearcher
+        from repro_torch.serve.rag import RAGPipeline, embed_tokens
+        torch, par = self.torch, self.parity
+        vocab = engine.model.cfg.vocab
+        docs = make_token_batch(vocab, RAG_DOCS, 12, seed=3)
+        t0 = time.perf_counter()
+        rag = RAGPipeline(engine, doc_tokens=docs, k=2, batch=64)
+        t_build = time.perf_counter() - t0
+        idx, p = rag.index, rag.searcher.p
+        vs, ix = rag.vector_store, rag.index_store
+        log(f"rag build: {RAG_DOCS} docs embedded from {LM_ARCH}'s "
+            f"[{vocab}, {engine.model.cfg.d_model}] table in {t_build:.1f} s "
+            f"({ {k: round(v, 2) for k, v in rag.build_s.items()} } s); "
+            f"vector store {vs.physical_bytes} B physical of "
+            f"{vs.logical_bytes} logical, index store "
+            f"{ix.physical_bytes} B; float32 rows of d "
+            f"{idx.vectors.shape[1]}, PQ M={idx.pq_codes.shape[1]} K=256, "
+            f"R={p.r_max} EF slots at U={p.universe}")
+        queries = make_token_batch(vocab, 64, 8, seed=11)
+        q = torch.from_numpy(embed_tokens(engine.params, queries)).to(self.dev)
+        cases = hop_parity(par, "rag", idx.pq_codes,
+                           build_lut_torch(q, idx.pq_centroids), idx.ef_slots,
+                           idx.vectors, q, p, p.r_max, p.universe)
+        log(f"rag parity: {cases} on the RAG index's own tensors bit-exact "
+            f"against their plain versions")
+        t0 = sync_time(torch)
+        ids, stats = rag.retrieve(queries)
+        t_ret = sync_time(torch, t0)
+        build.reset_launches()
+        t0 = sync_time(torch)
+        gen, st = rag.answer(queries, max_new=16)
+        t_ans = sync_time(torch, t0)
+        launches = dict(build.LAUNCHES)
+        for op in ("beam_step", "ef_decode", "pq_adc_batched", "rerank_l2"):
+            check(launches.get(op, 0) > 0,
+                  f"{op} never launched by RAG retrieval ({launches})")
+        check(np.array_equal(st["retrieved"], ids), "rag: answer's ids != "
+              "retrieve's")
+        on_cpu = DeviceIndex(*(None if t is None else t.cpu() for t in idx))
+        cpu = BatchedSearcher(on_cpu, rag.searcher.p, rag.searcher.cfg,
+                              device="cpu")
+        # the same two searches on the CPU: the first (retrieve's) finds the
+        # LRU cold, the second (answer's) warm
+        q_host = embed_tokens(engine.params, queries)
+        for label, rep in (("retrieve", stats["report"]),
+                           ("answer", st["report"])):
+            c_ids, _, c_rep = cpu.search(q_host)
+            c_ids = np.where(c_ids >= 0, c_ids, 0)[:, :2]
+            check(np.array_equal(ids, c_ids), f"rag ({label}): card ids != "
+                  f"CPU's")
+            for f in ("n_queries", "n_padded", "buckets", "graph_ios",
+                      "vector_ios", "cache_hits", "pq_ops", "exact_ops",
+                      "decompressions", "io_rounds", "rerank_batches"):
+                check(getattr(rep, f) == getattr(c_rep, f),
+                      f"rag ({label}) BatchReport.{f}: card "
+                      f"{getattr(rep, f)} != CPU {getattr(c_rep, f)}")
+        rep = stats["report"]
+        check(gen.shape == (64, 16) and ((gen >= 0) & (gen < vocab)).all(),
+              "rag: bad tokens")
+        log(f"rag serve: 64 requests of 8 query tokens, k=2, 16 new tokens "
+            f"(prompt 32 tokens); retrieval ids and the integer BatchReport "
+            f"fields == a CPU BatchedSearcher's on the same index; retrieve "
+            f"wall {t_ret:.3f} s ({len(queries) / t_ret:.1f} QPS with "
+            f"embedding; searcher {rep.wall_s:.4f} s, {rep.qps:.1f} QPS), "
+            f"modeled latency {rep.modeled_latency_us:.1f} us (p99 "
+            f"{rep.modeled_p99_us:.1f}), graph_ios {rep.graph_ios}, "
+            f"vector_ios {rep.vector_ios}, cache hits {rep.cache_hits}; "
+            f"answer wall {t_ans:.3f} s, generation {t_ans - t_ret:.3f} s, "
+            f"retrieval {100 * t_ret / t_ans:.1f}% of answer's wall; "
+            f"launches {launches}; {self.card()}")
+        return launches
 
 
 # ------------------------------------------------------------------ report

@@ -125,3 +125,10 @@ def prop_like_torch(n: int, dim: int, seed: int, device,
         raw /= torch.linalg.vector_norm(raw, dim=1, keepdim=True) + 1e-12
         out[a:b] = torch.round(raw, decimals=3).float()
     return out
+
+
+def make_token_batch(vocab: int, batch: int, seq: int, seed: int = 0) -> np.ndarray:
+    """Synthetic LM token stream (Zipf-ish) for serve smoke tests."""
+    rng = np.random.default_rng(seed)
+    z = rng.zipf(1.3, size=(batch, seq)).astype(np.int64)
+    return (z % vocab).astype(np.int32)

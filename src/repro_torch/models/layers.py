@@ -1,0 +1,170 @@
+"""Core transformer building blocks (plain functions on tensors).
+
+Attention comes in two modes that compute the same function:
+
+- ``dense``  — materialised float32 scores + mask, queries in chunks of
+  1,024 so the score transients stay bounded. The serving path's mode.
+- ``flash``  — online softmax over query and key/value chunks (plain loops).
+  Peak memory stays at tile size.
+
+GQA (n_kv_heads < n_heads), RoPE, optional qk-norm (qwen3), optional sliding
+window (gemma3 local layers), and KV-cache decode (full cache or ring buffer
+for windowed layers) are all supported.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from .sharding import shard
+
+NEG_INF = -1e30
+
+
+def rms_norm(x, gamma, eps: float = 1e-6):
+    dt = x.dtype
+    x32 = x.float()
+    y = x32 * torch.rsqrt((x32 * x32).mean(-1, keepdim=True) + eps)
+    return (y * (1.0 + gamma.float())).to(dt)
+
+
+def rope(x, positions, theta: float = 1e4):
+    """x [..., S, H, hd], positions [..., S] -> rotated x."""
+    hd = x.shape[-1]
+    half = hd // 2
+    exps = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                   device=x.device), exps)
+    ang = positions[..., None].float() * freqs                # [..., S, half]
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def _repeat_kv(k, n_rep: int):
+    if n_rep == 1:
+        return k
+    b, s, h, d = k.shape
+    return k[:, :, :, None, :].expand(b, s, h, n_rep, d).reshape(
+        b, s, h * n_rep, d)
+
+
+def _causal_window_mask(sq, skv, q_off, kv_off, window, device):
+    """[sq, skv] mask: kv position visible from q position (causal + window)."""
+    qpos = q_off + torch.arange(sq, device=device)[:, None]
+    kpos = kv_off + torch.arange(skv, device=device)[None, :]
+    m = kpos <= qpos
+    if window is not None:
+        m &= kpos > qpos - window
+    return m
+
+
+def attention_dense(q, k, v, *, causal=True, window=None, q_off=0, kv_off=0,
+                    softcap=None, kv_mask=None, q_chunk: int | None = 1024):
+    """q [B,Sq,H,hd], k/v [B,Skv,KVH,hd] -> [B,Sq,H,hd].
+
+    Queries are processed in chunks of ``q_chunk`` to bound the float32
+    score transients ([B, KVH, H/KVH, q_chunk, Skv]). GQA is computed with
+    grouped einsums (query heads folded onto their KV head as a group
+    axis), so the KV cache is never broadcast to H heads."""
+    b, sq, h, hd = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    qg = q.reshape(b, sq, kvh, g, hd)
+    k32 = k.float()
+    v32 = v.float()
+
+    def block(qb, q_off_b):
+        sqb = qb.shape[1]
+        scores = torch.einsum("bqhgd,bkhd->bhgqk", qb.float(),
+                              k32) / math.sqrt(hd)
+        if softcap:
+            scores = torch.tanh(scores / softcap) * softcap
+        if causal or window is not None:
+            m = _causal_window_mask(sqb, k.shape[1], q_off_b, kv_off, window,
+                                    q.device)[None, None, None]
+            scores = scores.masked_fill(~m, NEG_INF)
+        if kv_mask is not None:  # [B, Skv] validity (decode ring buffers)
+            scores = scores.masked_fill(~kv_mask[:, None, None, None, :],
+                                        NEG_INF)
+        p = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bhgqk,bkhd->bqhgd", p, v32)
+        return out.reshape(b, sqb, h, hd).to(q.dtype)
+
+    if q_chunk is None or sq <= q_chunk:
+        return block(qg, q_off)
+    outs = [block(qg[:, i:i + q_chunk], q_off + i)
+            for i in range(0, sq, q_chunk)]
+    return torch.cat(outs, dim=1)
+
+
+def attention_flash(q, k, v, *, causal=True, window=None, q_off=0, kv_off=0,
+                    softcap=None, q_chunk=512, kv_chunk=512):
+    """Online-softmax tiled attention: a loop over query chunks, and inside
+    it a loop over key/value chunks carrying (acc, running max, running
+    sum). Key/value chunks are broadcast to H heads a tile at a time."""
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    k = _repeat_kv(k, h // kvh)
+    v = _repeat_kv(v, h // kvh)
+    qc = min(q_chunk, sq)
+    kc = min(kv_chunk, skv)
+    qpad, kpad = (-sq) % qc, (-skv) % kc
+    qp = F.pad(q, (0, 0, 0, 0, 0, qpad))
+    kp = F.pad(k, (0, 0, 0, 0, 0, kpad))
+    vp = F.pad(v, (0, 0, 0, 0, 0, kpad))
+    nq, nk = qp.shape[1] // qc, kp.shape[1] // kc
+    dev = q.device
+    kv_valid = (torch.arange(nk * kc, device=dev) < skv).reshape(nk, kc)
+    outs = []
+    for qi in range(nq):
+        qblk32 = qp[:, qi * qc:(qi + 1) * qc].float() / math.sqrt(hd)
+        acc = torch.zeros((b, h, qc, hd), dtype=torch.float32, device=dev)
+        m_run = torch.full((b, h, qc), NEG_INF, dtype=torch.float32,
+                           device=dev)
+        l_run = torch.zeros((b, h, qc), dtype=torch.float32, device=dev)
+        for kj in range(nk):
+            kblk = kp[:, kj * kc:(kj + 1) * kc]
+            vblk = vp[:, kj * kc:(kj + 1) * kc]
+            s = torch.einsum("bqhd,bkhd->bhqk", qblk32, kblk.float())
+            if softcap:
+                s = torch.tanh(s / softcap) * softcap
+            if causal or window is not None:
+                mask = _causal_window_mask(qc, kc, q_off + qi * qc,
+                                           kv_off + kj * kc, window, dev)
+            else:
+                mask = torch.ones((qc, kc), dtype=torch.bool, device=dev)
+            mask = mask & kv_valid[kj][None, :]
+            s = s.masked_fill(~mask[None, None], NEG_INF)
+            m_new = torch.maximum(m_run, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            scale = torch.exp(m_run - m_new)
+            l_run = l_run * scale + p.sum(-1)
+            acc = acc * scale[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", p, vblk.float())
+            m_run = m_new
+        out = acc / torch.clamp(l_run[..., None], min=1e-30)
+        outs.append(out.transpose(1, 2).to(q.dtype))        # [b, qc, h, hd]
+    return torch.cat(outs, dim=1)[:, :sq]
+
+
+def attention(q, k, v, *, mode="dense", **kw):
+    fn = attention_dense if mode == "dense" else attention_flash
+    return fn(q, k, v, **kw)
+
+
+# --------------------------------------------------------------------- MLPs
+def swiglu(x, w_gate, w_up, w_down):
+    h = F.silu(x @ w_gate) * (x @ w_up)
+    h = shard(h, "batch", "seq", "ffn")
+    return h @ w_down
+
+
+def gelu_mlp(x, w_up, b_up, w_down, b_down):
+    # jax.nn.gelu's default is the tanh approximation.
+    h = F.gelu((x @ w_up) + b_up, approximate="tanh")
+    h = shard(h, "batch", "seq", "ffn")
+    return (h @ w_down) + b_down

@@ -1,0 +1,101 @@
+"""Declarative parameter schemas: one source of truth per architecture for
+shapes, logical sharding axes and init scales.
+
+From a schema we derive (a) random init on a device from a
+``torch.Generator``, (b) abstract params (``meta`` tensors, no allocation)
+and (c) the parameter count. Params are nested dicts of tensors with the
+reference's keys and its stacked ``[n_periods, ...]`` leaves, so a
+reference pytree carries over leaf by leaf (``params_from_numpy``).
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..kernels.dispatch import resolve_device
+
+
+@dataclass(frozen=True)
+class ParamSpec:
+    shape: tuple
+    axes: tuple                 # logical axes, len == len(shape)
+    init: str = "normal"        # normal | zeros | ones | a_log
+    scale: float | None = None  # None -> 1/sqrt(fan_in)
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} vs axes {self.axes}")
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts (keys in sorted order, as
+    ``jax.tree_util`` flattens them); ``rest`` are trees of the same
+    structure whose leaves are passed alongside."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in sorted(tree)}
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    return [tree]
+
+
+def init_params(schema, generator: torch.Generator,
+                dtype: torch.dtype = torch.float32) -> dict:
+    """Random params on ``generator``'s device: ``normal`` leaves are
+    N(0, 1) * scale (1/sqrt(fan_in) unless given), ``zeros``/``ones``
+    constant, ``a_log`` the S4/Mamba row log(1..d_state). The reference's
+    formulas; the draws are the generator's, not ``jax.random``'s."""
+    dev = generator.device
+
+    def init(spec: ParamSpec):
+        if spec.init == "zeros":
+            return torch.zeros(spec.shape, dtype=dtype, device=dev)
+        if spec.init == "ones":
+            return torch.ones(spec.shape, dtype=dtype, device=dev)
+        if spec.init == "a_log":
+            row = torch.log(torch.arange(1, spec.shape[-1] + 1,
+                                         dtype=torch.float32, device=dev))
+            return row.expand(spec.shape).to(dtype).contiguous()
+        fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
+        scale = spec.scale if spec.scale is not None else fan_in ** -0.5
+        x = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
+                        device=dev)
+        return x.mul_(scale).to(dtype)
+
+    return tree_map(init, schema)
+
+
+def abstract_params(schema, dtype: torch.dtype = torch.float32) -> dict:
+    """``meta`` tensors of every leaf's shape and dtype (nothing allocated)."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=dtype,
+                                          device="meta"), schema)
+
+
+def count_params(schema) -> int:
+    return sum(math.prod(s.shape) for s in tree_leaves(schema))
+
+
+def _tensor(a: np.ndarray, device, dtype) -> torch.Tensor:
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:               # jax hands out read-only views
+        a = a.copy()
+    if a.dtype.name == "bfloat16":          # ml_dtypes' bfloat16: same bits
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def params_from_numpy(tree, device=None, dtype: torch.dtype | None = None
+                      ) -> dict:
+    """A reference param (or cache) pytree, its leaves as numpy arrays, as
+    tensors on ``device`` (None = the card), cast to ``dtype`` if given."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: _tensor(np.asarray(a), dev, dtype), tree)

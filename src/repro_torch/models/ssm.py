@@ -1,0 +1,257 @@
+"""State-space / linear-recurrence mixers: Mamba (Jamba) and RWKV-6 (Finch).
+
+Both are attention-free token mixers with data-dependent gating of a
+recurrent state; both support three execution paths:
+
+- ``assoc``  — an associative scan over the full sequence (log depth: a
+  Hillis–Steele scan of the reference's combine).
+- ``chunk``  — a loop over sequence chunks with the same scan inside a
+  chunk (O(chunk) memory).
+- ``step``   — single-token recurrence for serve-time decode.
+
+Numerical notes: the scan combines (decay, value) pairs as the reference
+does, never through a cumulative product or a log-space closed form, where
+small decays underflow. Decays live in log space (log w <= 0), and the
+RWKV-6 intra-chunk pairwise term materialises exp(Lc_{t-1} - Lc_s) only
+for s <= t-1 where the exponent is <= 0 — no overflow for any decay
+strength.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+import torch.nn.functional as F
+
+
+@dataclass(frozen=True)
+class MambaConfig:
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int = 0       # 0 -> ceil(d_model/16)
+
+
+@dataclass(frozen=True)
+class RWKVConfig:
+    head_dim: int = 64
+    decay_lora: int = 64
+
+
+# =========================================================== diagonal scan
+def _assoc_combine(a, b):
+    (aa, au), (ba, bu) = a, b
+    return aa * ba, au * ba + bu
+
+
+def _assoc_scan(a, x):
+    """Inclusive scan of ``_assoc_combine`` over axis 1 (Hillis–Steele:
+    step 2^j combines each element with the one 2^j before it)."""
+    n = a.shape[1]
+    step = 1
+    while step < n:
+        ca, cx = _assoc_combine((a[:, :-step], x[:, :-step]),
+                                (a[:, step:], x[:, step:]))
+        a = torch.cat([a[:, :step], ca], 1)
+        x = torch.cat([x[:, :step], cx], 1)
+        step *= 2
+    return a, x
+
+
+def diag_ssm_scan(alpha, u, h0, mode: str = "chunk", chunk: int = 128):
+    """h_t = alpha_t * h_{t-1} + u_t over axis 1 of [B, S, ...] tensors.
+
+    Returns (h_all [B, S, ...], h_last [B, ...]).
+    """
+    if mode == "assoc":
+        a = torch.cat([torch.ones_like(alpha[:, :1]), alpha], 1)
+        x = torch.cat([h0[:, None], u], 1)
+        _, hh = _assoc_scan(a, x)
+        return hh[:, 1:], hh[:, -1]
+    if mode == "step":
+        h = alpha[:, 0] * h0 + u[:, 0]
+        return h[:, None], h
+    # chunked: loop over chunks, associative scan inside
+    s = alpha.shape[1]
+    c = min(chunk, s)
+    if s % c:
+        raise ValueError(f"sequence {s} is not a multiple of chunk {c}")
+    h, hs = h0, []
+    for i in range(0, s, c):
+        a1 = torch.cat([torch.ones_like(alpha[:, :1]), alpha[:, i:i + c]], 1)
+        x1 = torch.cat([h[:, None], u[:, i:i + c]], 1)
+        _, hh = _assoc_scan(a1, x1)
+        h = hh[:, -1]
+        hs.append(hh[:, 1:])
+    return torch.cat(hs, 1), h
+
+
+# ================================================================== Mamba
+def mamba_forward(x, p, mcfg: MambaConfig, state=None, mode: str = "chunk"):
+    """x [B, S, D] -> (y [B, S, D], new_state).
+
+    state = (conv_tail [B, d_conv-1, d_inner], h [B, d_inner, d_state]).
+    """
+    b, s, d = x.shape
+    d_inner = p["in_proj"].shape[1] // 2
+    dt_rank = p["dt_proj"].shape[0]
+    d_state = p["A_log"].shape[1]
+    dc = mcfg.d_conv
+
+    xz = x @ p["in_proj"]
+    x_in, z = torch.split(xz, d_inner, dim=-1)           # [B, S, d_inner]
+
+    conv_tail = state[0] if state is not None else \
+        torch.zeros((b, dc - 1, d_inner), dtype=x.dtype, device=x.device)
+    xin_ext = torch.cat([conv_tail, x_in], 1)            # [B, S+dc-1, di]
+    # causal depthwise conv: windowed dot with kernel [dc, di]
+    xc = sum(xin_ext[:, i:i + s] * p["conv_w"][i][None, None]
+             for i in range(dc)) + p["conv_b"]
+    xc = F.silu(xc)
+    new_conv_tail = xin_ext[:, s:]                       # last dc-1 inputs
+
+    xdb = xc @ p["x_proj"]
+    dt_raw = xdb[..., :dt_rank]
+    b_ssm = xdb[..., dt_rank:dt_rank + d_state]
+    c_ssm = xdb[..., dt_rank + d_state:]
+    pre = dt_raw @ p["dt_proj"] + p["dt_bias"]
+    dt = torch.logaddexp(pre, torch.zeros_like(pre))     # softplus, [B,S,di]
+
+    a = -torch.exp(p["A_log"].float())                   # [di, ds]
+    h0 = state[1].float() if state is not None else \
+        torch.zeros((b, d_inner, d_state), dtype=torch.float32,
+                    device=x.device)
+
+    if mode == "chunk" and s > 1:
+        # Chunk-local alpha/u: the [B, S, d_inner, d_state] tensors only
+        # ever exist a chunk at a time.
+        c = min(128, s)
+        if s % c:
+            raise ValueError(f"sequence {s} is not a multiple of chunk {c}")
+        h, ys = h0, []
+        for i in range(0, s, c):
+            xc_c, dt_c = xc[:, i:i + c], dt[:, i:i + c]
+            b_c, c_c = b_ssm[:, i:i + c], c_ssm[:, i:i + c]
+            alpha_c = torch.exp(dt_c.float()[..., None] * a[None, None])
+            u_c = (dt_c * xc_c).float()[..., None] * \
+                b_c.float()[:, :, None, :]
+            a1 = torch.cat([torch.ones_like(alpha_c[:, :1]), alpha_c], 1)
+            x1 = torch.cat([h[:, None], u_c], 1)
+            _, hh = _assoc_scan(a1, x1)
+            y_c = (hh[:, 1:] * c_c.float()[:, :, None, :]).sum(-1)
+            h = hh[:, -1]
+            ys.append(y_c.to(x.dtype))
+        h_last = h
+        y = torch.cat(ys, 1).float()
+    else:
+        alpha = torch.exp(dt.float()[..., None] * a[None, None])
+        u = (dt * xc).float()[..., None] * \
+            b_ssm.float()[:, :, None, :]                          # [B,S,di,ds]
+        h_all, h_last = diag_ssm_scan(alpha, u, h0, mode=mode)
+        y = (h_all * c_ssm.float()[:, :, None, :]).sum(-1)
+    y = y + p["D"].float()[None, None] * xc.float()
+    y = (y.to(x.dtype) * F.silu(z)) @ p["out_proj"]
+    return y, (new_conv_tail, h_last.float())
+
+
+# ================================================================== RWKV-6
+def _rwkv_mix(x, x_prev, mu):
+    """Token shift interpolation; x_prev is x_{t-1} (state for decode)."""
+    xs = torch.cat([x_prev[:, None], x[:, :-1]], 1)
+    return x + (xs - x) * mu[None, None]
+
+
+def rwkv_time_mix(x, p, rcfg: RWKVConfig, state=None, mode: str = "chunk",
+                  chunk: int = 32):
+    """RWKV-6 time mixing. x [B, S, D] -> (y, new_state).
+
+    state = (x_prev [B, D], s [B, H, dk, dv] recurrent matrix state).
+    Recurrence (per head):  y_t = r_t (S_{t-1} + diag(u) k_t^T v_t)
+                            S_t = diag(w_t) S_{t-1} + k_t^T v_t
+    with data-dependent decay w_t = exp(-exp(w0 + tanh(x_w W1) W2)).
+    """
+    b, s, d = x.shape
+    dk = rcfg.head_dim
+    h = p["w_r"].shape[1] // dk
+    x_prev = state[0] if state is not None else \
+        torch.zeros((b, d), dtype=x.dtype, device=x.device)
+    s0 = state[1].float() if state is not None else \
+        torch.zeros((b, h, dk, dk), dtype=torch.float32, device=x.device)
+
+    xr = _rwkv_mix(x, x_prev, p["mu_r"])
+    xk = _rwkv_mix(x, x_prev, p["mu_k"])
+    xv = _rwkv_mix(x, x_prev, p["mu_v"])
+    xw = _rwkv_mix(x, x_prev, p["mu_w"])
+    xg = _rwkv_mix(x, x_prev, p["mu_g"])
+    r = (xr @ p["w_r"]).reshape(b, s, h, dk).float()
+    k = (xk @ p["w_k"]).reshape(b, s, h, dk).float()
+    v = (xv @ p["w_v"]).reshape(b, s, h, dk).float()
+    g = F.silu(xg @ p["w_g"])
+    logw = -torch.exp(p["w0"].reshape(h, dk)[None, None] +
+                      (torch.tanh(xw @ p["w1"]) @ p["w2"]).reshape(
+                          b, s, h, dk).float())                # <= 0
+    u = p["u"].float()                                         # [H, dk]
+
+    def chunk_step(s_in, rc, kc, vc, lwc):
+        tc = rc.shape[1]                         # [B, Tc, H, dk]
+        lc = torch.cumsum(lwc, dim=1)
+        lprev = torch.cat([torch.zeros_like(lc[:, :1]), lc[:, :-1]], 1)
+        # inter-chunk: r_t decayed against entering state
+        y_inter = torch.einsum("bthd,bhde->bthe", rc * torch.exp(lprev), s_in)
+        # intra-chunk pairwise (s < t), exponent lprev_t - lc_s <= 0
+        pair = lprev[:, :, None] - lc[:, None]   # [B, T, S, H, dk]
+        tidx = torch.arange(tc, device=x.device)
+        mask = (tidx[:, None] > tidx[None, :])[None, :, :, None, None]
+        e = torch.where(mask, torch.exp(torch.clamp(pair, max=0.0)),
+                        torch.zeros_like(pair))
+        att = torch.einsum("bthd,bshd,btshd->bhts", rc, kc, e)
+        y_intra = torch.einsum("bhts,bshe->bthe", att, vc)
+        # current-token bonus
+        y_bonus = torch.einsum("bthd,bthd,bthe->bthe",
+                               rc, u[None, None] * kc, vc)
+        # state update to end of chunk
+        decay_out = torch.exp(lc[:, -1])                       # [B, H, dk]
+        kdec = kc * torch.exp(lc[:, -1][:, None] - lc)
+        s_out = decay_out[..., None] * s_in + \
+            torch.einsum("bshd,bshe->bhde", kdec, vc)
+        return s_out, y_inter + y_intra + y_bonus
+
+    if mode == "step":
+        rc, kc, vc = r[:, 0], k[:, 0], v[:, 0]
+        y = torch.einsum("bhd,bhde->bhe", rc, s0) + \
+            torch.einsum("bhd,bhd,bhe->bhe", rc, u[None] * kc, vc)
+        s_new = torch.exp(logw[:, 0])[..., None] * s0 + \
+            torch.einsum("bhd,bhe->bhde", kc, vc)
+        y = y[:, None]                                         # [B,1,H,dv]
+    else:
+        tc = min(chunk, s)
+        if s % tc:
+            raise ValueError(f"sequence {s} is not a multiple of chunk {tc}")
+        ys, s_new = [], s0
+        for i in range(0, s, tc):
+            s_new, y_i = chunk_step(s_new, r[:, i:i + tc], k[:, i:i + tc],
+                                    v[:, i:i + tc], logw[:, i:i + tc])
+            ys.append(y_i)
+        y = torch.cat(ys, 1)
+
+    # per-head group norm, gate, output
+    y32 = y.reshape(b, -1, h, dk)
+    mean = y32.mean(-1, keepdim=True)
+    var = y32.var(-1, keepdim=True, correction=0)
+    y32 = (y32 - mean) * torch.rsqrt(var + 1e-5)
+    y_out = (y32.reshape(b, -1, h * dk).to(x.dtype) *
+             p["ln_x"][None, None]) * g
+    out = y_out @ p["w_o"]
+    return out, (x[:, -1], s_new)
+
+
+def rwkv_channel_mix(x, p, state=None):
+    """RWKV FFN with token shift. state = x_prev [B, D]."""
+    b, s, d = x.shape
+    x_prev = state if state is not None else \
+        torch.zeros((b, d), dtype=x.dtype, device=x.device)
+    xk = _rwkv_mix(x, x_prev, p["mu_kc"])
+    xr = _rwkv_mix(x, x_prev, p["mu_rc"])
+    rr = torch.sigmoid(xr @ p["w_rc"])
+    kk = torch.square(torch.relu(xk @ p["w_kc"]))
+    return rr * (kk @ p["w_vc"]), x[:, -1]

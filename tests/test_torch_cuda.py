@@ -888,3 +888,86 @@ def test_admission_on_card_matches_cpu(cuda):
         np.testing.assert_array_equal(a.ids, b.ids)
         np.testing.assert_array_equal(a.dists.view(np.int32),
                                       b.dists.view(np.int32))
+
+
+#: Card against CPU for the float32 reduced LMs: both sum in other orders
+#: (cuBLAS against the CPU's GEMMs), logits are O(1-50); the H100 measured
+#: at most 9.1e-06 (chip_smoke phase 6).
+LM_CARD_ATOL = 1e-4
+
+
+def _lm_greedy_check(model, params, tokens, gen, frontend=None):
+    """Each of ``gen``'s tokens is the CPU engine's greedy pick, or within
+    ``LM_CARD_ATOL`` of it (near-tie rule)."""
+    from repro_torch.serve.engine import ServeEngine
+    margins = ServeEngine(model, params, device="cpu").greedy_margins(
+        tokens, gen, frontend)
+    assert float(margins.max()) <= LM_CARD_ATOL, margins
+
+
+@pytest.mark.cuda
+def test_lm_serving_on_card_matches_cpu(cuda):
+    """Each of the ten reduced archs (float32): prefill logits and every
+    decode step's logits on the card equal the CPU's within LM_CARD_ATOL,
+    and ``generate``'s greedy tokens on the card are the CPU's (near-tie
+    rule)."""
+    from repro_torch.configs import ARCHS, get_config, reduce_config
+    from repro_torch.data.synthetic import make_token_batch
+    from repro_torch.models.api import Model
+    from repro_torch.models.schema import tree_map
+    from repro_torch.serve.engine import ServeEngine
+    for arch in sorted(ARCHS):
+        model = Model.from_config(reduce_config(get_config(arch)))
+        cpu = model.init(0, device="cpu")
+        card = tree_map(lambda t: t.to(cuda), cpu)
+        toks = make_token_batch(model.cfg.vocab, 2, 16, seed=1)
+        frames = np.random.default_rng(1).normal(
+            size=(2, 8, model.cfg.frontend_dim)).astype(np.float32) \
+            if model.cfg.encoder_layers else None
+        batch = {"tokens": torch.from_numpy(toks).long()}
+        if frames is not None:
+            batch["frames"] = torch.from_numpy(frames)
+        with torch.no_grad():
+            want, _ = model.prefill(cpu, batch, attn_mode="dense")
+            got, _ = model.prefill(card, {k: v.to(cuda) for k, v in
+                                          batch.items()}, attn_mode="dense")
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
+                                   atol=LM_CARD_ATOL, err_msg=arch)
+        gen = ServeEngine(model, card).generate(toks, max_new=4,
+                                                frontend=frames)
+        _lm_greedy_check(model, cpu, toks, gen, frames)
+
+
+@pytest.mark.cuda
+def test_rag_on_card_matches_cpu(cuda):
+    """RAGPipeline(batch=8) on the card against the same pipeline on the
+    CPU (reduced internlm2, 256 documents): retrieval ids and every integer
+    BatchReport field equal, the answer's tokens the CPU's (near-tie
+    rule), and retrieval ran the path's kernels."""
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.data.synthetic import make_token_batch
+    from repro_torch.models.api import Model
+    from repro_torch.models.schema import tree_map
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.rag import RAGPipeline
+    model = Model.from_config(reduce_config(get_config("internlm2-1.8b")))
+    cpu = model.init(0, device="cpu")
+    card = tree_map(lambda t: t.to(cuda), cpu)
+    docs = make_token_batch(model.cfg.vocab, 256, 12, seed=3)
+    queries = make_token_batch(model.cfg.vocab, 8, 8, seed=11)
+    on_card = RAGPipeline(ServeEngine(model, card), doc_tokens=docs, k=2,
+                          batch=8)
+    on_cpu = RAGPipeline(ServeEngine(model, cpu, device="cpu"),
+                         doc_tokens=docs, k=2, batch=8)
+    build.reset_launches()
+    got_ids, got = on_card.retrieve(queries)
+    launches = dict(build.LAUNCHES)
+    want_ids, want = on_cpu.retrieve(queries)
+    np.testing.assert_array_equal(got_ids, want_ids)
+    _same_report(got["report"], want["report"])
+    for op in ("beam_step", "ef_decode", "pq_adc_batched", "rerank_l2"):
+        assert launches.get(op, 0) > 0, (op, launches)
+    gen, stats = on_card.answer(queries, max_new=4)
+    np.testing.assert_array_equal(stats["retrieved"], want_ids)
+    prompt = np.concatenate([docs[want_ids].reshape(8, -1), queries], 1)
+    _lm_greedy_check(model, cpu, prompt, gen)

@@ -29,6 +29,12 @@ from repro_torch.kernels import autotune
 from repro_torch.kernels.dispatch import KernelConfig
 from repro_torch.serve import admission, ann
 from repro_torch.data import synthetic
+from repro_torch.configs import get_config, reduce_config
+from repro_torch.launch import serve as launch_serve
+from repro_torch.models.api import Model
+from repro_torch.models.schema import params_from_numpy
+from repro_torch.serve.engine import ServeEngine
+from repro_torch.serve.rag import RAGPipeline
 
 from conftest import build_search_world
 
@@ -245,6 +251,8 @@ def test_entry_points_default_to_the_card(world):
     vecs, idx, _, _, queries = world
     arrays = _arrays(idx)
     on_cpu = index.device_index_from_numpy(arrays, "cpu")
+    lm = Model.from_config(reduce_config(get_config("internlm2-1.8b")))
+    lm_params = lm.init(0, device="cpu")
     p = beam.SearchParams(l_size=16, r_max=24, universe=1200, max_iters=4)
     snap = consistency.Snapshot(version=0, index_store=None,
                                 vector_store=None, pq_codes=None,
@@ -281,6 +289,12 @@ def test_entry_points_default_to_the_card(world):
             kernels=KernelConfig(beam_step="auto-tuned"))),
         lambda: admission.calibrate_service_model(
             ann.BatchedSearcher(on_cpu, p), queries[:2]),
+        lambda: lm.init(0),
+        lambda: params_from_numpy({"w": np.zeros(2, np.float32)}),
+        lambda: ServeEngine(lm, lm_params),
+        lambda: RAGPipeline(ServeEngine(lm, lm_params),
+                            doc_tokens=np.zeros((4, 3), np.int32)),
+        lambda: launch_serve.main(["--requests", "1", "--max-new", "1"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
