@@ -140,6 +140,24 @@ Phases (any fault exits non-zero; there is no CPU fallback):
    tensors, 64 requests answered (retrieval ids and integer BatchReport
    fields == a CPU BatchedSearcher's). Its kernel launches join the
    report's counts.
+7. train — after 6, with its model freed: the LM training path (the
+   losses and remat of models/*, optim/adamw.py, train/trainer.py,
+   data/pipeline.py, ft/*, launch/train.py), autograd over plain torch (no
+   kernel of kernels/csrc is on it). (a) The ten reduced archs in float32:
+   loss, every gradient leaf and the params after two make_train_step
+   steps, card == CPU. (b) internlm2-1.8b at full width in bf16, 8 AdamW
+   steps of launch/train.py's 8 x 128 traffic: the resident bytes, step ms,
+   tokens/s, peak memory, the busy share of 4 profiled steps, a warm
+   forward + backward and a warm adamw_update timed apart; gates: every
+   loss finite, step 0 (rate 0) leaves the master bit-equal to the initial
+   params, bf16 loss and grad norm against float32 on the bf16-rounded
+   params. (c) remat None/full/dots x loss_chunk None/1024 on one 4 x
+   1,024 batch: the same loss and grad norm, each mode's peak. (d) the
+   train_4k shape (seq 4,096) cut to the card: the largest microbatch
+   under remat full and loss_chunk 1024, one step of 2 microbatches. (e)
+   the full-width state saved and restored bit for bit (save and restore
+   seconds); the 100m preset's 2 + restore + 2 steps against 4. (f)
+   python -m repro_torch.launch.train with a restart, in subprocesses.
 """
 from __future__ import annotations
 
@@ -260,11 +278,15 @@ def main() -> int:
     t1 = time.time()
     add_launches(launches, LMServe(torch, parity, args, smi).run())  # 6. lm
     added["6"] = time.time() - t1
+    t1 = time.time()
+    LMTrain(torch, args, smi).run()                        # 7. train
+    added["7"] = time.time() - t1
     kernels = report(parity, launches, times)              # 5. report
 
     log(f"chip_smoke: whole run {time.time() - t0:.1f} s, of which phase 4e "
         f"{added['4e']:.1f} s, 4f {added['4f']:.1f} s, the autotune "
-        f"{added['autotune']:.1f} s, 6 (lm) {added['6']:.1f} s")
+        f"{added['autotune']:.1f} s, 6 (lm) {added['6']:.1f} s, 7 (train) "
+        f"{added['7']:.1f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2622,6 +2644,508 @@ class LMServe:
             f"retrieval {100 * t_ret / t_ans:.1f}% of answer's wall; "
             f"launches {launches}; {self.card()}")
         return launches
+
+
+# -------------------------------------------------------------------- train
+TRAIN_STEPS = 8                 # phase 7's full-width steps
+TRAIN_B, TRAIN_S = 8, 128       # launch/train.py's default traffic
+TRAIN_4K = 4096                 # configs/shapes.py train_4k: seq 4,096
+TRAIN_4K_GLOBAL = 256           # and global batch 256
+#: Phase 7's bounds. Card against CPU, reduced archs in float32 (no TF32):
+#: the loss, and every gradient leaf within this fraction of the CPU
+#: leaf's largest magnitude (tests/test_torch_cuda.py holds the same).
+TRAIN_REDUCED_ATOL = 1e-4
+TRAIN_REDUCED_REL = 1e-4
+#: bfloat16 against float32 on the bf16-rounded params, one 8 x 128 batch:
+#: the loss and the global grad norm, relative; about 10x what an H100
+#: measured (5.6e-05 and 1.1e-03, PERF.md §6).
+TRAIN_BF16_LOSS_REL = 1e-3
+TRAIN_BF16_GNORM_REL = 1e-2
+#: remat modes and the chunked loss against plain autograd with full
+#: logits (one batch): the loss relative (float32 sums in another order
+#: where the loss is chunked; remat alone recomputes the same kernels),
+#: the grad norm relative (bf16 gradients from another op order).
+TRAIN_REMAT_LOSS_REL = 1e-5
+TRAIN_REMAT_GNORM_REL = 1e-3
+#: The 100m preset's restart: the reference's own restart tolerance.
+TRAIN_RESTART_RTOL = 1e-4
+CKPT_CUT_S = 120                # a full-state round trip slower: cut it
+
+
+def leaf_gap(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+class LMTrain:
+    """Phase 7: the LM training path (models' losses and remat,
+    optim/adamw.py, train/trainer.py, data/pipeline.py, ft/*,
+    launch/train.py) on the card, after phase 6's model is freed. Every
+    reduced arch card == CPU; internlm2-1.8b at full width in bf16 trained
+    on launch/train.py's traffic; remat and the chunked loss; the train_4k
+    shape cut to the card; checkpoint and restart; the launcher."""
+
+    def __init__(self, torch, args, smi):
+        self.torch, self.seed, self.smi = torch, args.seed, smi
+        self.dev = torch.device("cuda")
+
+    def card(self) -> str:
+        return f"card {self.smi}"
+
+    def run(self) -> None:
+        torch = self.torch
+        torch.cuda.empty_cache()
+        log(f"train: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated "
+            f"on the card at the phase's start; no kernel of kernels/csrc "
+            f"is on the training path (autograd over plain torch)")
+        self.reduced_archs()                                       # (a)
+        from repro_torch.configs import get_config
+        from repro_torch.models.api import Model
+        model = Model.from_config(get_config(LM_ARCH))
+        check(model.n_params() == LM_PARAMS,
+              f"{LM_ARCH}: {model.n_params()} params != {LM_PARAMS}")
+        params, opt = self.full_width(model)                       # (b)
+        self.checkpoint_full(model, params, opt)                   # (e)
+        del opt
+        torch.cuda.empty_cache()
+        self.bf16_gate(model, params)                              # (b)
+        self.remat_modes(model, params)                            # (c)
+        self.train_4k(model, params)                               # (d)
+        del params
+        torch.cuda.empty_cache()
+        self.restart_100m()                                        # (e)
+        self.launcher()                                            # (f)
+
+    # -- (a) every arch, reduced
+    def reduced_archs(self):
+        from repro_torch.configs import ARCHS, get_config, reduce_config
+        from repro_torch.data.synthetic import make_token_batch
+        from repro_torch.models.api import Model
+        from repro_torch.models.schema import tree_leaves, tree_map
+        from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+        from repro_torch.train.trainer import TrainConfig, make_train_step
+        torch = self.torch
+        t0, worst = time.perf_counter(), {}
+        for arch in sorted(ARCHS):
+            model = Model.from_config(reduce_config(get_config(arch)))
+            cpu = model.init(self.seed, device="cpu")
+            card = tree_map(lambda t: t.to(self.dev), cpu)
+            toks = make_token_batch(model.cfg.vocab, 2, 17, seed=1)
+            batch = {"tokens": torch.from_numpy(toks[:, :-1]).long(),
+                     "labels": torch.from_numpy(toks[:, 1:]).long()}
+            rng = np.random.default_rng(1)
+            if model.cfg.encoder_layers:
+                batch["frames"] = torch.from_numpy(rng.normal(
+                    size=(2, 8, model.cfg.frontend_dim)).astype(np.float32))
+            elif model.cfg.frontend:
+                batch["frontend"] = torch.from_numpy(rng.normal(
+                    size=(2, model.cfg.frontend_len, model.cfg.frontend_dim)
+                ).astype(np.float32))
+            on_card = {k: v.to(self.dev) for k, v in batch.items()}
+            want, wg = self.loss_and_grads(model, cpu, batch)
+            got, gg = self.loss_and_grads(model, card, on_card)
+            loss_gap = abs(float(got) - float(want))
+            rel = max(leaf_gap(a, b.cpu()) / max(float(a.abs().max()), 1e-30)
+                      for a, b in zip(tree_leaves(wg), tree_leaves(gg)))
+            step = make_train_step(model, AdamWConfig(), TrainConfig(
+                remat=None, attn_mode="dense", warmup=0))
+            p_cpu, s_cpu = cpu, init_opt_state(cpu)
+            p_card, s_card = card, init_opt_state(card)
+            for _ in range(2):      # step 0's rate is 0: the second moves
+                p_cpu, s_cpu, _ = step(p_cpu, s_cpu, batch)
+                p_card, s_card, _ = step(p_card, s_card, on_card)
+            p_gap = max(leaf_gap(a, b.cpu()) for a, b in
+                        zip(tree_leaves(p_cpu), tree_leaves(p_card)))
+            worst[arch] = (loss_gap, rel, p_gap)
+            check(loss_gap <= TRAIN_REDUCED_ATOL and
+                  rel <= TRAIN_REDUCED_REL and p_gap <= TRAIN_REDUCED_ATOL,
+                  f"{arch} reduced training: card vs CPU loss {loss_gap:.3e}"
+                  f", grad leaf {rel:.3e} of its max, params {p_gap:.3e}")
+        log(f"train reduced: all {len(worst)} archs (reduce_config, float32,"
+            f" batch 2 x 16, dense attention) card == CPU: loss within "
+            f"{max(w[0] for w in worst.values()):.3e} (atol "
+            f"{TRAIN_REDUCED_ATOL}), every gradient leaf within "
+            f"{max(w[1] for w in worst.values()):.3e} of its largest "
+            f"magnitude (bound {TRAIN_REDUCED_REL}), params after 2 "
+            f"make_train_step steps within "
+            f"{max(w[2] for w in worst.values()):.3e} (atol "
+            f"{TRAIN_REDUCED_ATOL}); by arch (loss, grad, params) "
+            f"{ {a: tuple(float(f'{x:.2e}') for x in w) for a, w in worst.items()} }"
+            f" in {time.perf_counter() - t0:.1f} s")
+
+    def loss_and_grads(self, model, params, batch, **kw):
+        from repro_torch.train.trainer import value_and_grad
+        kw.setdefault("attn_mode", "dense")
+        return value_and_grad(lambda p, b: model.loss(p, b, **kw), params,
+                              batch)
+
+    # -- (b) full width
+    def resident(self, model) -> str:
+        n = model.n_params()
+        return (f"resident: params {2 * n / 1e9:.2f} GB bf16, gradients "
+                f"{2 * n / 1e9:.2f} GB, fp32 master + m + v "
+                f"{12 * n / 1e9:.2f} GB (total {16 * n / 1e9:.2f} GB before "
+                f"activations)")
+
+    def full_width(self, model):
+        from repro_torch.data.pipeline import TokenPipeline
+        from repro_torch.models.schema import tree_leaves
+        from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+        from repro_torch.train.trainer import (TrainConfig, TrainLoop,
+                                               batch_to, make_train_step)
+        torch = self.torch
+        t0 = sync_time(torch)
+        params = model.init(self.seed)
+        init = params                     # step 0 returns new params
+        opt = init_opt_state(params)
+        log(f"train: {LM_ARCH} at full width ({model.n_params():,} params, "
+            f"{model.cfg.dtype}) and its AdamW state on the card in "
+            f"{sync_time(torch, t0):.1f} s; {self.resident(model)}; "
+            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+        pipe = TokenPipeline(vocab=model.cfg.vocab, global_batch=TRAIN_B,
+                             seq_len=TRAIN_S, seed=self.seed)
+        tcfg = TrainConfig(attn_mode="dense", remat=None,
+                           total_steps=TRAIN_STEPS)
+        gate = {}
+
+        def step0(step, p, o, h):
+            if step:
+                return
+            gate["master"] = all(torch.equal(w, q.float()) for w, q in zip(
+                tree_leaves(o["master"]), tree_leaves(init)))
+            gate["m"] = min(float(m.abs().max()) for m in tree_leaves(o["m"]))
+            gate["v"] = min(float(v.abs().max()) for v in tree_leaves(o["v"]))
+
+        torch.cuda.reset_peak_memory_stats()
+        loop = TrainLoop(model, AdamWConfig(), tcfg)
+        params, opt, hist = loop.run(
+            params, (pipe.batch_at(s) for s in range(TRAIN_STEPS)),
+            opt_state=opt, hooks=[step0])
+        peak = torch.cuda.max_memory_allocated()
+        del init
+        losses = [h["loss"] for h in hist]
+        check(all(math.isfinite(x) for x in losses),
+              f"full-width training: a loss is not finite: {losses}")
+        check(gate["master"] and gate["m"] > 0 and gate["v"] > 0,
+              f"step 0 (warmup_cosine = 0): master unchanged "
+              f"{gate['master']}, smallest leaf max |m| {gate['m']:.3e}, "
+              f"|v| {gate['v']:.3e}")
+        secs = sorted(h["sec"] for h in hist[2:])
+        med = secs[len(secs) // 2] if len(secs) % 2 else \
+            (secs[len(secs) // 2 - 1] + secs[len(secs) // 2]) / 2
+        log(f"train full width: {TRAIN_STEPS} AdamW steps of {TRAIN_B} x "
+            f"{TRAIN_S} tokens (launch/train.py's traffic, TokenPipeline "
+            f"seed {self.seed}, AdamWConfig() defaults, dense attention, "
+            f"no remat): losses {[round(x, 4) for x in losses]}, grad norms "
+            f"{[round(h['grad_norm'], 3) for h in hist]}; step 0 left the "
+            f"master bit-equal to the initial params upcast with m and v "
+            f"nonzero in every leaf; step {med * 1e3:.1f} ms (median of "
+            f"steps 2..{TRAIN_STEPS - 1}; all {[round(h['sec'] * 1e3, 1) for h in hist]}"
+            f" ms), {TRAIN_B * TRAIN_S / med:.0f} tokens/s; peak "
+            f"max_memory_allocated {peak / 1e9:.2f} GB; {self.card()}")
+        # the card's busy share of 4 more steps, profiled
+        from torch.profiler import ProfilerActivity, profile
+        step = make_train_step(model, AdamWConfig(), tcfg)
+        batches = [batch_to(pipe.batch_at(TRAIN_STEPS + i), self.dev)
+                   for i in range(4)]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = sync_time(torch)
+            for b in batches:
+                params, opt, _ = step(params, opt, b)
+            wall = sync_time(torch, t0)
+        device_busy(torch, prof, f"4 training steps of {TRAIN_B} x "
+                    f"{TRAIN_S}, {LM_ARCH} bf16", None, wall)
+        # a step's two halves, each timed warm (the second of two calls),
+        # the update at the schedule's rate as make_train_step's
+        from repro_torch.optim.adamw import adamw_update
+        from repro_torch.optim.schedule import warmup_cosine
+        for _ in range(2):
+            t0 = sync_time(torch)
+            _, grads = self.loss_and_grads(model, params, batches[0])
+            t_fb = sync_time(torch, t0)
+            t0 = sync_time(torch)
+            params, opt, _ = adamw_update(
+                grads, opt, AdamWConfig(), model_dtype=torch.bfloat16,
+                lr_scale=warmup_cosine(opt["step"], warmup=tcfg.warmup,
+                                       total=tcfg.total_steps))
+            t_opt = sync_time(torch, t0)
+            del grads
+        n = model.n_params()
+        bound = 28 * n / HBM_BYTES_PER_S     # read g, m, v, w; write all
+        log(f"train step halves ({TRAIN_B} x {TRAIN_S}, warm): forward + "
+            f"backward {t_fb * 1e3:.1f} ms; adamw_update {t_opt * 1e3:.1f} "
+            f"ms against {bound * 1e3:.1f} ms for one pass that reads the "
+            f"bf16 gradients and the fp32 m, v and master and writes them "
+            f"and the bf16 params ({28 * n / 1e9:.1f} GB)")
+        return params, opt
+
+    def bf16_gate(self, model, params):
+        """One batch's loss and global grad norm in bf16 against the same
+        in float32 on the bf16-rounded params."""
+        from repro_torch.data.pipeline import TokenPipeline
+        from repro_torch.models.schema import tree_map
+        from repro_torch.optim.adamw import global_norm
+        from repro_torch.train.trainer import batch_to
+        torch = self.torch
+        batch = batch_to(TokenPipeline(vocab=model.cfg.vocab,
+                                       global_batch=TRAIN_B, seq_len=TRAIN_S,
+                                       seed=self.seed).batch_at(0), self.dev)
+        loss, grads = self.loss_and_grads(model, params, batch)
+        gnorm = float(global_norm(grads))
+        del grads
+        f32 = tree_map(lambda t: t.float(), params)
+        f32_model = type(model).from_config(
+            dataclasses.replace(model.cfg, dtype="float32"))
+        loss32, grads32 = self.loss_and_grads(f32_model, f32, batch)
+        gnorm32 = float(global_norm(grads32))
+        del grads32, f32
+        torch.cuda.empty_cache()
+        lrel = abs(float(loss) - float(loss32)) / abs(float(loss32))
+        grel = abs(gnorm - gnorm32) / gnorm32
+        check(lrel <= TRAIN_BF16_LOSS_REL and grel <= TRAIN_BF16_GNORM_REL,
+              f"bf16 vs float32 training loss {lrel:.3e}, grad norm "
+              f"{grel:.3e}")
+        log(f"train gate ({LM_ARCH}, one {TRAIN_B} x {TRAIN_S} batch): bf16 "
+            f"loss {float(loss):.6f} vs float32 on the bf16-rounded params "
+            f"{float(loss32):.6f} ({lrel:.3e} relative, bound "
+            f"{TRAIN_BF16_LOSS_REL}); global grad norm {gnorm:.5f} vs "
+            f"{gnorm32:.5f} ({grel:.3e}, bound {TRAIN_BF16_GNORM_REL})")
+
+    # -- (c) remat and the chunked loss
+    def remat_modes(self, model, params, b=4, s=1024):
+        from repro_torch.data.pipeline import TokenPipeline
+        from repro_torch.optim.adamw import global_norm
+        from repro_torch.train.trainer import batch_to
+        torch = self.torch
+        batch = batch_to(TokenPipeline(vocab=model.cfg.vocab, global_batch=b,
+                                       seq_len=s, seed=self.seed
+                                       ).batch_at(1), self.dev)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        res = {}
+        for remat in (None, "full", "dots"):
+            for chunk in (None, 1024):
+                torch.cuda.reset_peak_memory_stats()
+                t0 = sync_time(torch)
+                loss, grads = self.loss_and_grads(
+                    model, params, batch, remat=remat, loss_chunk=chunk)
+                gn = float(global_norm(grads))
+                wall = sync_time(torch, t0)
+                res[(remat, chunk)] = (float(loss), gn,
+                                       torch.cuda.max_memory_allocated()
+                                       - base, wall)
+                del grads
+        l0, g0 = res[(None, None)][:2]
+        worst_l = max(abs(r[0] - l0) / abs(l0) for r in res.values())
+        worst_g = max(abs(r[1] - g0) / g0 for r in res.values())
+        remat_bits = all(res[(r, c)][:2] == res[(None, c)][:2]
+                         for r in ("full", "dots") for c in (None, 1024))
+        check(worst_l <= TRAIN_REMAT_LOSS_REL and
+              worst_g <= TRAIN_REMAT_GNORM_REL,
+              f"remat / loss_chunk: loss {worst_l:.3e}, grad norm "
+              f"{worst_g:.3e} from plain autograd")
+        log(f"train remat ({LM_ARCH} full width, one {b} x {s} batch, "
+            f"params resident): every remat None/full/dots x loss_chunk "
+            f"None/1024 gives the loss within {worst_l:.3e} (bound "
+            f"{TRAIN_REMAT_LOSS_REL}) and the grad norm within {worst_g:.3e}"
+            f" (bound {TRAIN_REMAT_GNORM_REL}) of plain autograd; remat "
+            f"alone bit-equal (loss, norm): {remat_bits}; peak above the "
+            f"params by mode (GB, s): "
+            + "; ".join(f"remat={r} chunk={c}: loss {v[0]:.6f} norm "
+                        f"{v[1]:.5f} peak {v[2] / 1e9:.2f} GB {v[3]:.2f} s"
+                        for (r, c), v in res.items()))
+
+    # -- (d) train_4k, cut
+    def train_4k(self, model, params):
+        from repro_torch.data.pipeline import TokenPipeline
+        from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+        from repro_torch.train.trainer import (TrainConfig, batch_to,
+                                               make_train_step)
+        torch = self.torch
+        s = TRAIN_4K
+        opt = init_opt_state(params)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        peaks = {}
+        for b in (1, 2):            # the activations' peak a sequence
+            batch = batch_to(TokenPipeline(vocab=model.cfg.vocab,
+                                           global_batch=b, seq_len=s,
+                                           seed=self.seed).batch_at(0),
+                             self.dev)
+            torch.cuda.reset_peak_memory_stats()
+            loss, grads = self.loss_and_grads(model, params, batch,
+                                              remat="full", loss_chunk=1024)
+            del grads
+            peaks[b] = torch.cuda.max_memory_allocated() - base
+        per = max(peaks[2] - peaks[1], 1)
+        fixed = peaks[1] - per
+        # the step also holds an fp32 accumulator of the gradients
+        acc = 4 * model.n_params()
+        total = torch.cuda.get_device_properties(0).total_memory
+        # 75%: the allocator's free blocks between sizes (~11 GB at 90%,
+        # where a microbatch of 11 ran out of memory) need the rest
+        fit = int((0.75 * total - base - acc - fixed) // per)
+        mb_b = max(1, min(fit, TRAIN_4K_GLOBAL // 2))
+        log(f"train_4k sizing: remat full, loss_chunk 1024, a {s}-token "
+            f"sequence adds {per / 1e9:.2f} GB (batch 1 peaks "
+            f"{peaks[1] / 1e9:.2f} GB, batch 2 {peaks[2] / 1e9:.2f} GB above "
+            f"{base / 1e9:.2f} GB of params + AdamW state); with the "
+            f"{acc / 1e9:.2f} GB fp32 gradient accumulator {fit} fit in 75% "
+            f"of {total / 1e9:.1f} GB -> microbatch {mb_b}")
+        log(f"reduced: train_4k global batch {TRAIN_4K_GLOBAL} -> "
+            f"{2 * mb_b} (2 microbatches of {mb_b} x {s}, one card)")
+        tcfg = TrainConfig(microbatches=2, remat="full", loss_chunk=1024,
+                           attn_mode="dense")
+        step = make_train_step(model, AdamWConfig(), tcfg)
+        batch = batch_to(TokenPipeline(vocab=model.cfg.vocab,
+                                       global_batch=2 * mb_b, seq_len=s,
+                                       seed=self.seed).batch_at(0), self.dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = sync_time(torch)
+        params2, opt, metrics = step(params, opt, batch)
+        wall = sync_time(torch, t0)
+        peak = torch.cuda.max_memory_allocated()
+        loss = float(metrics["loss"])
+        check(math.isfinite(loss), f"train_4k: loss {loss}")
+        log(f"train_4k: one step of 2 x {mb_b} x {s} tokens (remat full, "
+            f"loss_chunk 1024, dense attention, fp32 accumulation): loss "
+            f"{loss:.4f}, grad norm {float(metrics['grad_norm']):.4f}, step "
+            f"{wall:.2f} s (first call), {2 * mb_b * s / wall:.0f} tokens/s,"
+            f" peak max_memory_allocated {peak / 1e9:.2f} GB; {self.card()}")
+        del params2, opt, batch
+        torch.cuda.empty_cache()
+
+    # -- (e) checkpoint and restart
+    def ckpt_dir(self, name) -> Path:
+        d = ROOT / "build" / "chip_smoke_ckpt" / name
+        import shutil
+        shutil.rmtree(d, ignore_errors=True)
+        return d
+
+    def checkpoint_full(self, model, params, opt):
+        """The whole training state at full width saved and restored onto
+        the card, bit for bit, bf16 kept; cut to the params when the disk
+        cannot hold the state or the round trip is too slow."""
+        import shutil
+        from repro_torch.ft.checkpoint import (restore_checkpoint,
+                                               save_checkpoint)
+        from repro_torch.models.schema import tree_leaves
+        torch = self.torch
+        d = self.ckpt_dir("full")
+        d.parent.mkdir(parents=True, exist_ok=True)
+        state_bytes = sum(t.numel() * t.element_size() for t in
+                          tree_leaves({"params": params, "opt": opt}))
+        free = shutil.disk_usage(d.parent).free
+        what = {"params": params, "opt": opt}
+        if free < 1.5 * state_bytes:
+            what = {"params": params}
+            log(f"reduced: checkpoint round trip cut to the params "
+                f"({free / 1e9:.1f} GB free on disk for "
+                f"{state_bytes / 1e9:.2f} GB of state)")
+        nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(what))
+        t0 = sync_time(torch)
+        save_checkpoint(d, TRAIN_STEPS + 4, what.get("params"),
+                        what.get("opt"))
+        t_save = sync_time(torch, t0)
+        t0 = sync_time(torch)
+        back, manifest = restore_checkpoint(d, what)
+        t_load = sync_time(torch, t0)
+        same = all(a.dtype == b.dtype and a.device == b.device and
+                   torch.equal(a, b) for a, b in
+                   zip(tree_leaves(back), tree_leaves(what)))
+        check(same and manifest["step"] == TRAIN_STEPS + 4,
+              "full-width checkpoint round trip is not bit-exact")
+        on_disk = sum(f.stat().st_size for f in d.rglob("*") if f.is_file())
+        del back
+        shutil.rmtree(d, ignore_errors=True)
+        torch.cuda.empty_cache()
+        log(f"train checkpoint (full width, {'params + AdamW state' if 'opt' in what else 'params'}"
+            f", {nbytes / 1e9:.2f} GB, {on_disk / 1e9:.2f} GB on disk): save "
+            f"{t_save:.1f} s, restore onto the card {t_load:.1f} s; every "
+            f"leaf bit-equal, bf16 params restored as bf16")
+        if "opt" in what and t_save + t_load > CKPT_CUT_S:
+            log(f"train checkpoint: the round trip took over {CKPT_CUT_S} s; "
+                f"cut it to the params in the next run")
+
+    def restart_100m(self):
+        """2 steps + checkpoint + restore + 2 steps equal 4 uninterrupted
+        steps, on the 100m preset on the card."""
+        from repro_torch.configs import preset_config
+        from repro_torch.data.pipeline import TokenPipeline
+        from repro_torch.ft.checkpoint import (restore_checkpoint,
+                                               save_checkpoint)
+        from repro_torch.models.api import Model
+        from repro_torch.models.schema import tree_leaves
+        from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+        from repro_torch.train.trainer import TrainConfig, TrainLoop
+        torch = self.torch
+        model = Model.from_config(preset_config(LM_ARCH, "100m"))
+        pipe = TokenPipeline(vocab=model.cfg.vocab, global_batch=8,
+                             seq_len=256, seed=self.seed)
+        tcfg = TrainConfig(remat=None, attn_mode="dense", warmup=1,
+                           total_steps=4)
+
+        def run(n, params, opt, start=0):
+            return TrainLoop(model, AdamWConfig(lr=1e-3), tcfg).run(
+                params, [pipe.batch_at(s) for s in range(start, start + n)],
+                opt_state=opt, start_step=start)
+
+        p0 = model.init(self.seed)
+        full_p, _, full = run(4, p0, init_opt_state(p0))
+        p1 = model.init(self.seed)
+        p1, o1, first = run(2, p1, init_opt_state(p1))
+        d = self.ckpt_dir("100m")
+        save_checkpoint(d, 2, p1, o1)
+        back, _ = restore_checkpoint(d, {"params": p1, "opt": o1})
+        res_p, _, second = run(2, back["params"], back["opt"], start=2)
+        got = [h["loss"] for h in first + second]
+        want = [h["loss"] for h in full]
+        err = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        bits = got == want
+        p_gap = max(leaf_gap(a, b) for a, b in zip(tree_leaves(res_p),
+                                                   tree_leaves(full_p)))
+        check(err <= TRAIN_RESTART_RTOL, f"100m restart: losses {got} vs "
+              f"uninterrupted {want}")
+        import shutil
+        shutil.rmtree(d, ignore_errors=True)
+        log(f"train restart ({model.cfg.name}, {model.n_params():,} params, "
+            f"{model.cfg.dtype}, 8 x 256, lr 1e-3): 2 steps + checkpoint + "
+            f"restore + 2 steps, losses {[round(x, 6) for x in got]} vs 4 "
+            f"uninterrupted {[round(x, 6) for x in want]}: max relative "
+            f"{err:.3e} (rtol {TRAIN_RESTART_RTOL}); losses bit-equal "
+            f"{bits}; final params max gap {p_gap:.3e} (0: bit-equal)")
+
+    # -- (f) the launcher
+    def launcher(self):
+        d = self.ckpt_dir("launcher")
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        base = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                LM_ARCH, "--preset", "smoke", "--batch", "2", "--seq", "64",
+                "--ckpt-dir", str(d)]
+        t0 = time.perf_counter()
+        outs = []
+        for steps, every in ((6, 3), (8, 100)):
+            proc = subprocess.run(base + ["--steps", str(steps),
+                                          "--ckpt-every", str(every)],
+                                  capture_output=True, text=True, env=env,
+                                  cwd=str(ROOT), timeout=300)
+            check(proc.returncode == 0, f"launch.train --steps {steps}: "
+                  f"{proc.stderr[-2000:]}")
+            outs.append(proc.stdout)
+        wall = time.perf_counter() - t0
+        check("done: loss" in outs[0] and (d / "step_00000003").exists(),
+              f"launch.train: {outs[0][-500:]}")
+        check("restored checkpoint at step 6" in outs[1] and
+              f"device={self.torch.cuda.get_device_name(0)}" in outs[1],
+              f"launch.train restart: {outs[1][-500:]}")
+        import shutil
+        shutil.rmtree(d, ignore_errors=True)
+        done = [ln for o in outs for ln in o.splitlines()
+                if ln.startswith(("done:", "restored", "mesh="))]
+        log(f"train launcher: python -m repro_torch.launch.train --arch "
+            f"{LM_ARCH} --preset smoke --steps 6 --batch 2 --seq 64 "
+            f"--ckpt-every 3, then --steps 8 (a restart), on the card, two "
+            f"subprocesses in {wall:.1f} s: {done}")
 
 
 # ------------------------------------------------------------------ report

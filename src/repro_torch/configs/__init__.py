@@ -4,5 +4,6 @@ path (``registry.ARCHS``, ``--arch <id>``), their assigned input shapes
 (``decouplevs_ann.py``). The arch files are data, copied from the
 reference's with the port's config classes."""
 from . import shapes  # noqa: F401
-from .registry import ARCHS, get_config, reduce_config  # noqa: F401
+from .registry import (ARCHS, get_config, preset_config,  # noqa: F401
+                       reduce_config)
 from .shapes import SHAPES, ShapeSpec, applicable  # noqa: F401

@@ -1,4 +1,5 @@
-"""Architecture registry: ``--arch <id>`` resolution + reduced smoke configs."""
+"""Architecture registry: ``--arch <id>`` resolution, reduced smoke configs
+and the training presets."""
 from __future__ import annotations
 
 import dataclasses
@@ -62,3 +63,25 @@ def reduce_config(cfg: ModelConfig, d_model: int = 64) -> ModelConfig:
         frontend_len=4 if cfg.frontend else 0,
         dtype="float32",
     )
+
+
+def preset_config(arch: str, preset: str) -> ModelConfig:
+    """The training presets of ``launch/train.py`` (the reference's
+    ``examples/train_lm.py::preset_config``): ``full`` is the arch's own
+    config, ``smoke`` its ``reduce_config``, ``100m`` a ~100M-param scale
+    of the same family (d 512, ~8 layers of periods, vocab 16,384)."""
+    cfg = get_config(arch)
+    if preset == "full":
+        return cfg
+    if preset == "smoke":
+        return reduce_config(cfg)
+    if preset != "100m":
+        raise ValueError(f"unknown preset {preset!r}")
+    base = reduce_config(cfg, d_model=512)
+    n_rep = max(1, 8 // max(1, len(base.period)))
+    return dataclasses.replace(
+        base, name=f"{arch}-100m", vocab=16_384, d_ff=2048,
+        n_layers=len(base.head) + n_rep * len(base.period) + len(base.tail),
+        n_heads=8 if base.n_heads else 0,
+        n_kv_heads=min(8, base.n_kv_heads * 4) if base.n_kv_heads else 0,
+        head_dim=64)

@@ -1,8 +1,9 @@
 """Unified model API over decoder-only and encoder-decoder families.
 
-`Model.from_config(cfg)` gives: schema/init/abstract params, `prefill`,
-`decode_step` (serve), `abstract_cache` and `input_specs` — the interface
-the serving engine, the launcher and the tests consume.
+`Model.from_config(cfg)` gives: schema/init/abstract params, `loss`
+(train), `prefill`, `decode_step` (serve), `abstract_cache` and
+`input_specs` — the interface the trainer, the serving engine, the
+launchers and the tests consume.
 """
 from __future__ import annotations
 
@@ -42,6 +43,25 @@ class Model:
 
     def n_params(self) -> int:
         return schema_lib.count_params(self.schema)
+
+    # ------------------------------------------------------------ train
+    def loss(self, params, batch, *, attn_mode="flash", ssm_mode="chunk",
+             remat=None, loss_chunk=None, remat_group=1):
+        """Scalar float32 training loss of ``batch`` (``tokens``,
+        ``labels``, and ``frames`` or ``frontend`` where the arch has
+        them), differentiable by autograd."""
+        cfg = self.cfg
+        if cfg.encoder_layers:
+            return encdec.encdec_loss(params, cfg, batch["frames"],
+                                      batch["tokens"], batch["labels"],
+                                      attn_mode=attn_mode,
+                                      loss_chunk=loss_chunk,
+                                      remat=remat)
+        return transformer.loss_fn(
+            params, cfg, batch["tokens"], batch["labels"],
+            frontend_embeds=batch.get("frontend"),
+            attn_mode=attn_mode, ssm_mode=ssm_mode, remat=remat,
+            loss_chunk=loss_chunk, remat_group=remat_group)
 
     # ------------------------------------------------------------ serve
     def prefill(self, params, batch, *, attn_mode="flash", ssm_mode="chunk"):

@@ -2,16 +2,18 @@
 
 The audio frontend is a stub: inputs are precomputed frame embeddings
 [B, S_enc, frontend_dim]. The backbone is fully implemented: bidirectional
-encoder, causal decoder with cross-attention, teacher-forced decoding, and
-a serve path (encode once -> cached cross-K/V -> decode steps). Layers are
-stacked ``[n_layers, ...]`` leaves; the loops slice leaf ``[i]``.
+encoder, causal decoder with cross-attention, teacher-forced training
+(``encdec_loss``), and a serve path (encode once -> cached cross-K/V ->
+decode steps). Layers are stacked ``[n_layers, ...]`` leaves, which the
+loops take apart once (``unstack``).
 """
 from __future__ import annotations
 
 import torch
 
-from .layers import attention, rms_norm, rope
-from .schema import ParamSpec, tree_map
+from .layers import (attention, checkpointed, chunked_cross_entropy,
+                     cross_entropy_loss, rms_norm, rope)
+from .schema import ParamSpec, unstack
 from .sharding import shard
 from .transformer import (LayerDesc, ModelConfig, _apply_mlp, _attn_schema,
                           _meta, _mlp_schema, torch_dtype)
@@ -47,10 +49,6 @@ def build_encdec_schema(cfg: ModelConfig) -> dict:
         "enc_norm": ParamSpec((d,), (None,), "zeros"),
         "final_norm": ParamSpec((d,), (None,), "zeros"),
     }
-
-
-def _layer(stacked: dict, i: int) -> dict:
-    return tree_map(lambda t: t[i], stacked)
 
 
 def _self_attn(p, x, cfg, positions, causal, attn_mode, cache=None, pos=None):
@@ -89,17 +87,22 @@ def _cross_attn(p, x, memory_kv, cfg, attn_mode):
     return x + o.reshape(b, s, h * hd) @ p["xwo"]
 
 
-def encode(params, cfg: ModelConfig, frames, attn_mode="flash"):
+def encode(params, cfg: ModelConfig, frames, attn_mode="flash", remat=None):
     dt = torch_dtype(cfg.dtype)
     x = frames.to(dt) @ params["frontend_proj"].to(dt)
     x = shard(x, "batch", "seq", None)
     b, se, _ = x.shape
     positions = torch.arange(se, device=x.device)[None].expand(b, se)
-    for i in range(cfg.encoder_layers):
-        blk = _layer(params["encoder"], i)
-        x, _ = _self_attn(blk["mixer"], x, cfg, positions, causal=False,
-                          attn_mode=attn_mode)
-        x, _, _ = _apply_mlp(blk["mlp"], x, cfg, GELU, "train", None)
+
+    def body(xx, blk):
+        xx, _ = _self_attn(blk["mixer"], xx, cfg, positions, causal=False,
+                           attn_mode=attn_mode)
+        xx, _, _ = _apply_mlp(blk["mlp"], xx, cfg, GELU, "train", None)
+        return xx
+
+    body = checkpointed(body, "full" if remat else None)
+    for blk in unstack(params["encoder"]):
+        x = body(x, blk)
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -112,35 +115,55 @@ def _memory_kv(cross, memory, cfg):
 
 
 def decode_train(params, cfg: ModelConfig, memory, tokens, attn_mode="flash",
-                 return_cache=False):
-    """Teacher-forced decoder over ``tokens`` -> logits [B, S, V]; with
-    ``return_cache``, also the serve cache of the sequence: the decoder's
-    self-K/V (token j at slot j) and the cross-K/V of ``memory``, each
-    stacked over layers as ``abstract_encdec_cache`` lays them out."""
+                 return_cache=False, remat=None, return_hidden=False):
+    """Teacher-forced decoder over ``tokens`` -> logits [B, S, V] (the final
+    hidden [B, S, D] with ``return_hidden``); with ``return_cache``, also
+    the serve cache of the sequence: the decoder's self-K/V (token j at
+    slot j) and the cross-K/V of ``memory``, each stacked over layers as
+    ``abstract_encdec_cache`` lays them out. ``remat`` (any mode)
+    checkpoints each layer, as the reference's ``jax.checkpoint`` does."""
     dt = torch_dtype(cfg.dtype)
     x = params["embed"][tokens].to(dt)
     b, st = tokens.shape
     positions = torch.arange(st, device=x.device)[None].expand(b, st)
-    ks, vs, xks, xvs = [], [], [], []
-    for i in range(cfg.n_layers):
-        blk = _layer(params["decoder"], i)
-        x, kv = _self_attn(blk["mixer"], x, cfg, positions, causal=True,
-                           attn_mode=attn_mode)
+
+    def body(xx, blk):
+        xx, kv = _self_attn(blk["mixer"], xx, cfg, positions, causal=True,
+                            attn_mode=attn_mode)
         mkv = _memory_kv(blk["cross"], memory, cfg)
-        x = _cross_attn(blk["cross"], x, mkv, cfg, attn_mode)
-        x, _, _ = _apply_mlp(blk["mlp"], x, cfg, GELU, "train", None)
+        xx = _cross_attn(blk["cross"], xx, mkv, cfg, attn_mode)
+        xx, _, _ = _apply_mlp(blk["mlp"], xx, cfg, GELU, "train", None)
+        return (xx, kv["k"], kv["v"], *mkv) if return_cache else xx
+
+    body = checkpointed(body, "full" if remat else None)
+    kvs = []
+    for blk in unstack(params["decoder"]):
         if return_cache:
-            ks.append(kv["k"])
-            vs.append(kv["v"])
-            xks.append(mkv[0])
-            xvs.append(mkv[1])
+            x, *kv = body(x, blk)
+            kvs.append(kv)
+        else:
+            x = body(x, blk)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if return_hidden:
+        return x
     logits = x @ params["embed"].T.to(x.dtype)
     if not return_cache:
         return logits
-    return logits, {"k": torch.stack(ks).to(dt), "v": torch.stack(vs).to(dt),
-                    "xk": torch.stack(xks).to(dt),
-                    "xv": torch.stack(xvs).to(dt)}
+    ks, vs, xks, xvs = (torch.stack(t).to(dt) for t in zip(*kvs))
+    return logits, {"k": ks, "v": vs, "xk": xks, "xv": xvs}
+
+
+def encdec_loss(params, cfg: ModelConfig, frames, tokens_in, labels,
+                attn_mode="flash", loss_chunk=None, remat=None):
+    memory = encode(params, cfg, frames, attn_mode, remat=remat)
+    if loss_chunk:
+        x = decode_train(params, cfg, memory, tokens_in, attn_mode,
+                         remat=remat, return_hidden=True)
+        return chunked_cross_entropy(x, params["embed"].T, labels,
+                                     chunk=loss_chunk)
+    logits = decode_train(params, cfg, memory, tokens_in, attn_mode,
+                          remat=remat)
+    return cross_entropy_loss(logits, labels)
 
 
 # ------------------------------------------------------------- serving
@@ -161,8 +184,7 @@ def decode_step(params, cfg: ModelConfig, cache, token, pos, attn_mode="dense"):
     x = params["embed"][token].to(dt)           # [B, 1, D]
     positions = pos[:, None]
     ks, vs = [], []
-    for i in range(cfg.n_layers):
-        blk = _layer(params["decoder"], i)
+    for i, blk in enumerate(unstack(params["decoder"])):
         x, nc = _self_attn(blk["mixer"], x, cfg, positions, causal=True,
                            attn_mode="dense",
                            cache={"k": cache["k"][i], "v": cache["v"][i]},

@@ -168,3 +168,84 @@ def gelu_mlp(x, w_up, b_up, w_down, b_down):
     h = F.gelu((x @ w_up) + b_up, approximate="tanh")
     h = shard(h, "batch", "seq", "ffn")
     return (h @ w_down) + b_down
+
+
+# ----------------------------------------------------------------- softmax x-ent
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Save the outputs of matmuls without batch dims (``aten.mm`` /
+    ``aten.addmm``, not ``aten.bmm``) and recompute the rest: the rule of
+    ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+def checkpointed(fn, mode: str | None = "full"):
+    """``fn`` under one of the reference's remat modes: None runs it as it
+    is; ``"full"`` recomputes it in backward instead of keeping its
+    intermediates (``jax.checkpoint``); ``"dots"`` keeps only the outputs
+    of its matmuls without batch dims. Under ``no_grad`` every mode is a
+    plain call."""
+    if mode is None:
+        return fn
+    if mode not in ("full", "dots"):
+        raise ValueError(f"unknown remat mode {mode!r}")
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        from torch.utils.checkpoint import checkpoint
+        if mode == "full":
+            return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=_dots_context)
+    return run
+
+
+def cross_entropy_loss(logits, labels, z_loss: float = 1e-4):
+    """Mean token cross entropy (+ z-loss for stability at big vocab)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    loss = (lse - ll).mean()
+    if z_loss:
+        loss = loss + z_loss * (lse ** 2).mean()
+    return loss
+
+
+def chunked_cross_entropy(x, head, labels, *, chunk: int = 256,
+                          softcap=None, z_loss: float = 1e-4):
+    """Loss without materialising [B, S, V] logits: a loop over sequence
+    chunks, computing (and discarding) one logits chunk at a time, with the
+    chunk recomputed in backward. S is padded to a multiple of the chunk
+    and the pad masked; the sum is divided by B * S."""
+    b, s, d = x.shape
+    c = min(chunk, s)
+    pad = (-s) % c
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+    n = x.shape[1] // c
+    valid = (torch.arange(n * c, device=x.device) < s).reshape(n, c)
+
+    def chunk_loss(xc, lc, vc):
+        logits = (xc @ head.to(xc.dtype)).float()
+        if softcap:
+            logits = torch.tanh(logits / softcap) * softcap
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, lc[..., None].long())[..., 0]
+        per_tok = (lse - ll) + z_loss * lse ** 2
+        return (per_tok * vc[None, :]).sum()
+
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n):
+        sl = slice(i * c, (i + 1) * c)
+        total = total + checkpointed(chunk_loss)(x[:, sl], labels[:, sl],
+                                                 valid[i])
+    return total / (b * s)

@@ -5,7 +5,8 @@ From a schema we derive (a) random init on a device from a
 ``torch.Generator``, (b) abstract params (``meta`` tensors, no allocation)
 and (c) the parameter count. Params are nested dicts of tensors with the
 reference's keys and its stacked ``[n_periods, ...]`` leaves, so a
-reference pytree carries over leaf by leaf (``params_from_numpy``).
+reference pytree carries over leaf by leaf (``params_from_numpy``,
+``opt_state_from_numpy``) and back (``to_numpy``).
 """
 from __future__ import annotations
 
@@ -46,6 +47,22 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def tree_unflatten(template, leaves) -> dict:
+    """A tree of ``template``'s structure holding ``leaves`` in
+    ``tree_leaves`` order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), template)
+
+
+def unstack(tree) -> list:
+    """The trees of a stacked tree's leading axis: one ``unbind`` a leaf,
+    whose backward is one ``stack`` (indexing ``t[i]`` instead would fill
+    and add into a zero tensor of the whole leaf for every slice)."""
+    parts = tree_map(lambda t: t.unbind(0), tree)
+    n = len(tree_leaves(parts)[0])
+    return [tree_map(lambda ts: ts[i], parts) for i in range(n)]
+
+
 def init_params(schema, generator: torch.Generator,
                 dtype: torch.dtype = torch.float32) -> dict:
     """Random params on ``generator``'s device: ``normal`` leaves are
@@ -83,7 +100,7 @@ def count_params(schema) -> int:
 
 
 def _tensor(a: np.ndarray, device, dtype) -> torch.Tensor:
-    a = np.ascontiguousarray(a)
+    a = np.asarray(a, order="C")           # keeps 0-d leaves 0-d
     if not a.flags.writeable:               # jax hands out read-only views
         a = a.copy()
     if a.dtype.name == "bfloat16":          # ml_dtypes' bfloat16: same bits
@@ -99,3 +116,40 @@ def params_from_numpy(tree, device=None, dtype: torch.dtype | None = None
     tensors on ``device`` (None = the card), cast to ``dtype`` if given."""
     dev = resolve_device(device)
     return tree_map(lambda a: _tensor(np.asarray(a), dev, dtype), tree)
+
+
+def opt_state_from_numpy(state, device=None) -> dict:
+    """The reference's optimizer state (``{"m", "v", "master", "step"}``,
+    numpy leaves) as the port's: fp32 trees and an int32 step on
+    ``device`` (None = the card)."""
+    if set(state) != {"m", "v", "master", "step"}:
+        raise ValueError(f"not an optimizer state: keys {sorted(state)}")
+    out = params_from_numpy({k: state[k] for k in ("m", "v", "master")},
+                            device, torch.float32)
+    out["step"] = params_from_numpy(np.asarray(state["step"]), device,
+                                    torch.int32)
+    return out
+
+
+def host_bits(t) -> np.ndarray:
+    """A tensor as a host numpy array; bfloat16 as its uint16 bits (numpy
+    has no bfloat16). Anything else through ``np.asarray``."""
+    if not isinstance(t, torch.Tensor):
+        return np.asarray(t)
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def to_numpy(tree):
+    """The reverse of ``params_from_numpy``: a tree of tensors as host
+    numpy arrays, bfloat16 leaves as ``ml_dtypes.bfloat16`` arrays (the
+    dtype JAX uses; ml_dtypes is imported only for them)."""
+    def leaf(t):
+        a = host_bits(t)
+        if t.dtype == torch.bfloat16:
+            import ml_dtypes
+            a = a.view(ml_dtypes.bfloat16)
+        return a
+    return tree_map(leaf, tree)

@@ -23,6 +23,8 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
+from .layers import checkpointed
+
 
 @dataclass(frozen=True)
 class MambaConfig:
@@ -76,13 +78,19 @@ def diag_ssm_scan(alpha, u, h0, mode: str = "chunk", chunk: int = 128):
     c = min(chunk, s)
     if s % c:
         raise ValueError(f"sequence {s} is not a multiple of chunk {c}")
+    # checkpointed: backward recomputes a chunk's scan instead of keeping
+    # its log-depth intermediates
+    @checkpointed
+    def step(h, a_c, u_c):
+        a1 = torch.cat([torch.ones_like(a_c[:, :1]), a_c], 1)
+        x1 = torch.cat([h[:, None], u_c], 1)
+        _, hh = _assoc_scan(a1, x1)
+        return hh[:, -1], hh[:, 1:]
+
     h, hs = h0, []
     for i in range(0, s, c):
-        a1 = torch.cat([torch.ones_like(alpha[:, :1]), alpha[:, i:i + c]], 1)
-        x1 = torch.cat([h[:, None], u[:, i:i + c]], 1)
-        _, hh = _assoc_scan(a1, x1)
-        h = hh[:, -1]
-        hs.append(hh[:, 1:])
+        h, hh = step(h, alpha[:, i:i + c], u[:, i:i + c])
+        hs.append(hh)
     return torch.cat(hs, 1), h
 
 
@@ -128,10 +136,8 @@ def mamba_forward(x, p, mcfg: MambaConfig, state=None, mode: str = "chunk"):
         c = min(128, s)
         if s % c:
             raise ValueError(f"sequence {s} is not a multiple of chunk {c}")
-        h, ys = h0, []
-        for i in range(0, s, c):
-            xc_c, dt_c = xc[:, i:i + c], dt[:, i:i + c]
-            b_c, c_c = b_ssm[:, i:i + c], c_ssm[:, i:i + c]
+        @checkpointed
+        def step(h, xc_c, dt_c, b_c, c_c):
             alpha_c = torch.exp(dt_c.float()[..., None] * a[None, None])
             u_c = (dt_c * xc_c).float()[..., None] * \
                 b_c.float()[:, :, None, :]
@@ -139,8 +145,13 @@ def mamba_forward(x, p, mcfg: MambaConfig, state=None, mode: str = "chunk"):
             x1 = torch.cat([h[:, None], u_c], 1)
             _, hh = _assoc_scan(a1, x1)
             y_c = (hh[:, 1:] * c_c.float()[:, :, None, :]).sum(-1)
-            h = hh[:, -1]
-            ys.append(y_c.to(x.dtype))
+            return hh[:, -1], y_c.to(x.dtype)
+
+        h, ys = h0, []
+        for i in range(0, s, c):
+            h, y_c = step(h, xc[:, i:i + c], dt[:, i:i + c],
+                          b_ssm[:, i:i + c], c_ssm[:, i:i + c])
+            ys.append(y_c)
         h_last = h
         y = torch.cat(ys, 1).float()
     else:
@@ -202,7 +213,10 @@ def rwkv_time_mix(x, p, rcfg: RWKVConfig, state=None, mode: str = "chunk",
         pair = lprev[:, :, None] - lc[:, None]   # [B, T, S, H, dk]
         tidx = torch.arange(tc, device=x.device)
         mask = (tidx[:, None] > tidx[None, :])[None, :, :, None, None]
-        e = torch.where(mask, torch.exp(torch.clamp(pair, max=0.0)),
+        # minimum, not clamp: at pair == 0 (s = t - 1) both halve the
+        # gradient, as jnp.minimum does
+        e = torch.where(mask, torch.exp(torch.minimum(pair,
+                                                      torch.zeros_like(pair))),
                         torch.zeros_like(pair))
         att = torch.einsum("bthd,bshd,btshd->bhts", rc, kc, e)
         y_intra = torch.einsum("bhts,bshe->bthe", att, vc)
@@ -227,10 +241,14 @@ def rwkv_time_mix(x, p, rcfg: RWKVConfig, state=None, mode: str = "chunk",
         tc = min(chunk, s)
         if s % tc:
             raise ValueError(f"sequence {s} is not a multiple of chunk {tc}")
+        # several chunks in chunk mode: each checkpointed, as the
+        # reference's scan body is
+        step = checkpointed(chunk_step) if mode == "chunk" and s > tc \
+            else chunk_step
         ys, s_new = [], s0
         for i in range(0, s, tc):
-            s_new, y_i = chunk_step(s_new, r[:, i:i + tc], k[:, i:i + tc],
-                                    v[:, i:i + tc], logw[:, i:i + tc])
+            s_new, y_i = step(s_new, r[:, i:i + tc], k[:, i:i + tc],
+                              v[:, i:i + tc], logw[:, i:i + tc])
             ys.append(y_i)
         y = torch.cat(ys, 1)
 

@@ -3,12 +3,13 @@
 
 A config declares a *period* — a tuple of layer descriptors (mixer + MLP
 kind) — repeated ``n_periods`` times (parameters stacked over periods, the
-leaves ``[n_periods, ...]``; ``forward`` loops over the stack, slicing leaf
-``[i]`` of the params and of the cache) plus an optional explicit *head*
+leaves ``[n_periods, ...]``; ``forward`` takes the stack apart once and
+loops over its periods) plus an optional explicit *head*
 and *tail* (e.g. gemma3's 62 = 10*6 + 2 local layers).
 
-Three phases share the same parameters:
+Four phases share the same parameters:
   train    — full-sequence causal forward, no cache, returns logits
+  hidden   — train's forward up to the final norm (for a chunked loss)
   prefill  — forward + KV/SSM cache construction
   decode   — single-token step against the cache
 
@@ -22,9 +23,10 @@ from dataclasses import dataclass
 
 import torch
 
-from .layers import attention, gelu_mlp, rms_norm, rope, swiglu
+from .layers import (attention, checkpointed, chunked_cross_entropy,
+                     cross_entropy_loss, gelu_mlp, rms_norm, rope, swiglu)
 from .moe import MoEConfig, moe_layer
-from .schema import ParamSpec, tree_map
+from .schema import ParamSpec, tree_map, unstack
 from .sharding import shard
 from .ssm import (MambaConfig, RWKVConfig, mamba_forward, rwkv_channel_mix,
                   rwkv_time_mix)
@@ -353,6 +355,7 @@ def _apply_mlp(p, x, cfg, desc, phase, cache):
 
 def _apply_layer(desc, p, x, cfg, positions, phase, cache, attn_mode,
                  ssm_mode):
+    phase = "train" if phase == "hidden" else phase
     x, mixer_cache = _apply_mixer(p["mixer"], x, cfg, desc, positions, phase,
                                   cache, attn_mode, ssm_mode)
     x = shard(x, "batch", "seq", None)
@@ -363,14 +366,21 @@ def _apply_layer(desc, p, x, cfg, positions, phase, cache, attn_mode,
 
 def forward(params, cfg: ModelConfig, tokens, *, phase="train", cache=None,
             pos=None, frontend_embeds=None, attn_mode="flash",
-            ssm_mode="chunk"):
-    """tokens [B, S] -> (logits [B, S', V], new_cache, aux_loss).
+            ssm_mode="chunk", remat=None, remat_group: int = 1):
+    """tokens [B, S] -> (logits [B, S', V], new_cache, aux_loss); phase
+    ``hidden`` -> (final hidden [B, S', D], head [D, V], aux_loss), for a
+    loss that computes the logits in chunks itself.
 
     pos: [B] current lengths for decode (defaults to zeros for train/prefill).
-    The period loop slices leaf ``[i]`` of the stacked params and cache and
-    restacks the new caches, so caches keep ``abstract_cache``'s shapes.
+    The period loop takes the stacked params and cache apart once
+    (``unstack``) and restacks the new caches, so caches keep
+    ``abstract_cache``'s shapes. ``remat`` (None | "full" | "dots")
+    checkpoints each layer; ``remat_group`` g > 1 also checkpoints each
+    run of g periods (train and hidden phases, when g divides
+    ``n_periods``), so backward keeps n_periods / g activations between
+    groups.
     """
-    if phase not in ("train", "prefill", "decode"):
+    if phase not in ("train", "prefill", "decode", "hidden"):
         raise ValueError(f"unknown phase {phase!r}")
     b, s = tokens.shape
     dt = torch_dtype(cfg.dtype)
@@ -386,33 +396,56 @@ def forward(params, cfg: ModelConfig, tokens, *, phase="train", cache=None,
         pos[:, None] + ar[None]
     x = shard(x, "batch", "seq", None)
 
-    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    def make_layer(desc):
+        def f(p, xx, cj):
+            return _apply_layer(desc, p, xx, cfg, positions, phase, cj,
+                                attn_mode, ssm_mode)
+        return checkpointed(f, remat)
 
-    def run(descs, layer_params, layer_cache):
-        nonlocal x, aux_total
+    layer_fns = {d: make_layer(d)
+                 for d in {*cfg.head, *cfg.period, *cfg.tail}}
+
+    def run(descs, layer_params, layer_cache, xx, aux):
         new = {}
         for j, desc in enumerate(descs):
             cj = layer_cache[str(j)] if layer_cache is not None else None
-            x, a, nc = _apply_layer(desc, layer_params[str(j)], x, cfg,
-                                    positions, phase, cj, attn_mode, ssm_mode)
-            aux_total = aux_total + a
+            xx, a, nc = layer_fns[desc](layer_params[str(j)], xx, cj)
+            aux = aux + a
             if nc is not None:
                 new[str(j)] = nc
-        return new
+        return xx, aux, new
 
-    head_cache = run(cfg.head, params.get("head"),
-                     cache.get("head") if cache is not None else None)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    x, aux_total, head_cache = run(
+        cfg.head, params.get("head"),
+        cache.get("head") if cache is not None else None, x, aux_total)
+    np_ = cfg.n_periods
+    per_params = unstack(params["period"])
+    per_cache_in = unstack(cache["period"]) if cache is not None \
+        else [None] * np_
+    g = remat_group if (remat_group and phase in ("train", "hidden")
+                        and np_ % remat_group == 0) else 1
     per_caches = []
-    for i in range(cfg.n_periods):
-        per_params = tree_map(lambda t: t[i], params["period"])
-        per_cache = tree_map(lambda t: t[i], cache["period"]) \
-            if cache is not None else None
-        per_caches.append(run(cfg.period, per_params, per_cache))
-    tail_cache = run(cfg.tail, params.get("tail"),
-                     cache.get("tail") if cache is not None else None)
+    if g > 1:
+        def group(xx, aux, *ps):
+            for pp in ps:
+                xx, aux, _ = run(cfg.period, pp, None, xx, aux)
+            return xx, aux
+        for i in range(0, np_, g):
+            x, aux_total = checkpointed(group)(x, aux_total,
+                                               *per_params[i:i + g])
+    else:
+        for pp, pc in zip(per_params, per_cache_in):
+            x, aux_total, nc = run(cfg.period, pp, pc, x, aux_total)
+            per_caches.append(nc)
+    x, aux_total, tail_cache = run(
+        cfg.tail, params.get("tail"),
+        cache.get("tail") if cache is not None else None, x, aux_total)
 
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    if phase == "hidden":       # the loss computes the logits chunked
+        return x, head, aux_total
     if phase == "prefill":      # serving needs only the last position
         x = x[:, -1:]
     logits = x @ head.to(x.dtype)
@@ -429,3 +462,22 @@ def forward(params, cfg: ModelConfig, tokens, *, phase="train", cache=None,
         if cfg.tail:
             new_cache["tail"] = tail_cache
     return logits, new_cache, aux_total
+
+
+def loss_fn(params, cfg: ModelConfig, tokens, labels, *, frontend_embeds=None,
+            attn_mode="flash", ssm_mode="chunk", remat=None, aux_weight=0.01,
+            loss_chunk: int | None = None, remat_group: int = 1):
+    """Mean next-token cross entropy (+ z-loss) + ``aux_weight`` x the MoE
+    load-balance loss; the frontend's positions carry no label."""
+    kw = dict(frontend_embeds=frontend_embeds, attn_mode=attn_mode,
+              ssm_mode=ssm_mode, remat=remat, remat_group=remat_group)
+    n_front = frontend_embeds.shape[1] \
+        if cfg.frontend and frontend_embeds is not None else 0
+    if loss_chunk:
+        x, head, aux = forward(params, cfg, tokens, phase="hidden", **kw)
+        loss = chunked_cross_entropy(x[:, n_front:], head, labels,
+                                     chunk=loss_chunk,
+                                     softcap=cfg.final_softcap)
+        return loss + aux_weight * aux
+    logits, _, aux = forward(params, cfg, tokens, phase="train", **kw)
+    return cross_entropy_loss(logits[:, n_front:], labels) + aux_weight * aux

@@ -971,3 +971,61 @@ def test_rag_on_card_matches_cpu(cuda):
     np.testing.assert_array_equal(stats["retrieved"], want_ids)
     prompt = np.concatenate([docs[want_ids].reshape(8, -1), queries], 1)
     _lm_greedy_check(model, cpu, prompt, gen)
+
+
+#: Card against CPU, reduced archs in float32 (no TF32): every gradient
+#: leaf within this fraction of the CPU leaf's largest magnitude, the loss
+#: and the params after a step within LM_CARD_ATOL.
+TRAIN_CARD_REL = 1e-4
+
+
+def _loss_and_grads(model, params, batch):
+    from repro_torch.models.schema import tree_leaves
+    from repro_torch.train.trainer import value_and_grad
+    loss, grads = value_and_grad(
+        lambda p, b: model.loss(p, b, attn_mode="dense"), params, batch)
+    return float(loss), [g.float().cpu() for g in tree_leaves(grads)]
+
+
+@pytest.mark.cuda
+def test_training_on_card_matches_cpu(cuda):
+    """Each of the ten reduced archs (float32): ``Model.loss`` and every
+    gradient leaf on the card equal the CPU's within the stated bounds,
+    and so do the params after two ``make_train_step`` steps."""
+    from repro_torch.configs import ARCHS, get_config, reduce_config
+    from repro_torch.data.synthetic import make_token_batch
+    from repro_torch.models.api import Model
+    from repro_torch.models.schema import tree_leaves, tree_map
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.train.trainer import TrainConfig, make_train_step
+    for arch in sorted(ARCHS):
+        model = Model.from_config(reduce_config(get_config(arch)))
+        cpu = model.init(0, device="cpu")
+        card = tree_map(lambda t: t.to(cuda), cpu)
+        toks = make_token_batch(model.cfg.vocab, 2, 17, seed=1)
+        batch = {"tokens": torch.from_numpy(toks[:, :-1]).long(),
+                 "labels": torch.from_numpy(toks[:, 1:]).long()}
+        rng = np.random.default_rng(1)
+        if model.cfg.encoder_layers:
+            batch["frames"] = torch.from_numpy(rng.normal(
+                size=(2, 8, model.cfg.frontend_dim)).astype(np.float32))
+        elif model.cfg.frontend:
+            batch["frontend"] = torch.from_numpy(rng.normal(
+                size=(2, model.cfg.frontend_len, model.cfg.frontend_dim)
+            ).astype(np.float32))
+        on_card = {k: v.to(cuda) for k, v in batch.items()}
+        want, wg = _loss_and_grads(model, cpu, batch)
+        got, gg = _loss_and_grads(model, card, on_card)
+        assert abs(got - want) <= LM_CARD_ATOL, arch
+        for a, b in zip(wg, gg):
+            assert float((a - b).abs().max()) <= \
+                TRAIN_CARD_REL * max(float(a.abs().max()), 1e-30), arch
+        step = make_train_step(model, AdamWConfig(), TrainConfig(
+            remat=None, attn_mode="dense", warmup=0))
+        p_cpu, s_cpu = cpu, init_opt_state(cpu)
+        p_card, s_card = card, init_opt_state(card)
+        for _ in range(2):      # step 0's rate is 0: the second one moves
+            p_cpu, s_cpu, _ = step(p_cpu, s_cpu, batch)
+            p_card, s_card, _ = step(p_card, s_card, on_card)
+        for a, b in zip(tree_leaves(p_cpu), tree_leaves(p_card)):
+            assert float((a - b.cpu()).abs().max()) <= LM_CARD_ATOL, arch
