@@ -158,10 +158,28 @@ Phases (any fault exits non-zero; there is no CPU fallback):
    the full-width state saved and restored bit for bit (save and restore
    seconds); the 100m preset's 2 + restore + 2 steps against 4. (f)
    python -m repro_torch.launch.train with a restart, in subprocesses.
+8. mesh — after 7: the mesh slice and the dry-run. The dry-run's cells
+   start with phase 8, each in a process of its own on a fake process
+   group (one host core each, meta tensors), and trace while (a) and (b)
+   run, so phase 8's seconds include them. (a) the card's rates: a
+   warm bf16 8,192^3 torch.matmul and one read of 4 GiB, printed beside
+   the card's name and power limit. (b) phase 7's first two full-width
+   steps again, on a one-rank NCCL group's (1, 1) mesh under
+   sharding.policy (params DTensors): the loss and every fp32 master leaf
+   after each step equal phase 7's bit for bit. (c) phase 7's own cell
+   dry-run on a (1, 1) mesh: its roofline bound at (a)'s rates must not
+   exceed phase 7's measured warm step (a bound above it means the count
+   is wrong); the ratio is printed. (d) python -m
+   repro_torch.launch.dryrun for decouplevs-ann at 256 and 512 shards and
+   internlm2-1.8b train_4k on pod16x16: per-rank bytes, FLOPs,
+   collectives and seconds. Phase 8 prints its seconds against a 90 s
+   budget, and each dry-run process's own wall beside them; no kernel of
+   kernels/csrc is on its path.
 """
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import dataclasses
 import json
@@ -250,6 +268,8 @@ def main() -> int:
         f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn={torch.backends.cudnn.allow_tf32}")
 
+    mesh_phase = MeshPhase(torch, args, smi)
+    atexit.register(mesh_phase.stop)   # a fault in 8 leaves none behind
     parity = Parity(torch, args.seed)
     parity.run_small()                                     # 2. parity
     small_world(torch, args.seed)                          # 3. small world
@@ -279,14 +299,23 @@ def main() -> int:
     add_launches(launches, LMServe(torch, parity, args, smi).run())  # 6. lm
     added["6"] = time.time() - t1
     t1 = time.time()
-    LMTrain(torch, args, smi).run()                        # 7. train
+    train = LMTrain(torch, args, smi)
+    train.run()                                            # 7. train
     added["7"] = time.time() - t1
+    t1 = time.time()
+    mesh_phase.run(train)                                  # 8. mesh
+    added["8"] = time.time() - t1
+    del train
+    log(f"mesh: phase 8 {added['8']:.1f} s (budget {MESH_BUDGET_S} s), its "
+        f"dry-run processes' own walls " + ", ".join(
+            f"{k} {w:.1f} s" for k, w in mesh_phase.walls.items())
+        + " (beside 8a and 8b)")
     kernels = report(parity, launches, times)              # 5. report
 
     log(f"chip_smoke: whole run {time.time() - t0:.1f} s, of which phase 4e "
         f"{added['4e']:.1f} s, 4f {added['4f']:.1f} s, the autotune "
         f"{added['autotune']:.1f} s, 6 (lm) {added['6']:.1f} s, 7 (train) "
-        f"{added['7']:.1f} s")
+        f"{added['7']:.1f} s, 8 (mesh) {added['8']:.1f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2687,6 +2716,8 @@ class LMTrain:
     def __init__(self, torch, args, smi):
         self.torch, self.seed, self.smi = torch, args.seed, smi
         self.dev = torch.device("cuda")
+        self.first_steps = []       # (loss, master leaves on the host)
+        self.step_s = None          # the warm full-width step (median)
 
     def card(self) -> str:
         return f"card {self.smi}"
@@ -2808,6 +2839,9 @@ class LMTrain:
         gate = {}
 
         def step0(step, p, o, h):
+            if step < MESH_STEPS:       # phase 8b's reference: host copies
+                self.first_steps.append((h["loss"], [
+                    w.to("cpu", copy=True) for w in tree_leaves(o["master"])]))
             if step:
                 return
             gate["master"] = all(torch.equal(w, q.float()) for w, q in zip(
@@ -2832,6 +2866,7 @@ class LMTrain:
         secs = sorted(h["sec"] for h in hist[2:])
         med = secs[len(secs) // 2] if len(secs) % 2 else \
             (secs[len(secs) // 2 - 1] + secs[len(secs) // 2]) / 2
+        self.step_s = med
         log(f"train full width: {TRAIN_STEPS} AdamW steps of {TRAIN_B} x "
             f"{TRAIN_S} tokens (launch/train.py's traffic, TokenPipeline "
             f"seed {self.seed}, AdamWConfig() defaults, dense attention, "
@@ -3146,6 +3181,268 @@ class LMTrain:
             f"{LM_ARCH} --preset smoke --steps 6 --batch 2 --seq 64 "
             f"--ckpt-every 3, then --steps 8 (a restart), on the card, two "
             f"subprocesses in {wall:.1f} s: {done}")
+
+
+# -------------------------------------------------------------------- mesh
+MESH_STEPS = 2                  # phase 8b's steps under the mesh policy
+MESH_BUDGET_S = 90              # phase 8's stated budget
+MATMUL_N = 8192                 # 8a's bf16 yardstick: an N^3 matmul
+READ_BYTES = 4 << 30            # 8a's read: 4 GiB
+#: 8c's cell in a process of its own: phase 7's program (internlm2-1.8b,
+#: 8 x 128, AdamWConfig(), dense attention, no remat) traced on the (1, 1)
+#: mesh of a one-rank fake group; writes the cell's JSON into argv[1].
+PHASE7_CELL = """
+import sys
+from repro_torch.configs import get_config
+from repro_torch.configs.shapes import ShapeSpec
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.models.api import Model
+from repro_torch.train.trainer import TrainConfig
+dryrun.init_fake_world(1)
+mesh = make_local_mesh(device_type="cpu")
+model = Model.from_config(get_config(sys.argv[2]))
+shape = ShapeSpec("phase7", int(sys.argv[4]), int(sys.argv[3]), "train")
+cell = dryrun.lm_cell(model, shape, mesh,
+                      dryrun._rules_for(model.cfg, shape, mesh),
+                      tcfg=TrainConfig(attn_mode="dense", remat=None,
+                                       total_steps=int(sys.argv[5])))
+cell.update(arch=sys.argv[2], shape=shape.name, mesh="local1x1")
+dryrun.write_cell(cell, sys.argv[1])
+"""
+
+
+class MeshPhase:
+    """Phase 8: the mesh slice (launch/mesh.py, the sharding policy over a
+    DeviceMesh, the trainer on DTensors) and the dry-run (launch/dryrun.py,
+    launch/roofline.py, lower_production_search) after phase 7. The
+    dry-run's cells trace on the host in processes of their own (a fake
+    process group each, one core each), started with phase 8 and read
+    after (8a) the card's bf16 matmul and read rates and (8b) phase 7's
+    first steps again under the mesh policy on a one-rank NCCL group, bit
+    for bit, which run while they trace."""
+
+    def __init__(self, torch, args, smi):
+        self.torch, self.seed, self.smi = torch, args.seed, smi
+        self.dev = torch.device("cuda")
+        self.out = ROOT / "build" / "dryrun_torch"
+        self.procs, self.waiters, self.outs, self.walls = {}, {}, {}, {}
+
+    def card(self) -> str:
+        return f"card {self.smi}"
+
+    def run(self, train: LMTrain) -> None:
+        self.train = train
+        self.start_dryruns()                                       # 8c, 8d
+        rates = self.card_rates()                                  # 8a
+        self.mesh_steps()                                          # 8b
+        outs = {k: self.finish(k) for k in self.procs}
+        self.roofline_vs_card(rates)                               # 8c
+        self.production(outs)                                      # 8d
+
+    # -- the dry-run processes
+    def start_dryruns(self) -> None:
+        import shutil
+        shutil.rmtree(self.out, ignore_errors=True)
+        self.out.mkdir(parents=True)
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                   CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+        cmds = {
+            "8c": [sys.executable, "-c", PHASE7_CELL, str(self.out), LM_ARCH,
+                   str(TRAIN_B), str(TRAIN_S), str(TRAIN_STEPS)],
+            "8d-ann": [sys.executable, "-m", "repro_torch.launch.dryrun",
+                       "--arch", "decouplevs-ann", "--both-meshes", "--out",
+                       str(self.out)],
+            "8d-lm": [sys.executable, "-m", "repro_torch.launch.dryrun",
+                      "--arch", LM_ARCH, "--shape", "train_4k", "--out",
+                      str(self.out)]}
+        t0 = time.time()
+        for k, c in cmds.items():
+            self.procs[k] = subprocess.Popen(
+                c, env=env, cwd=str(ROOT), stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)
+            self.waiters[k] = threading.Thread(target=self.wait,
+                                               args=(k, t0), daemon=True)
+            self.waiters[k].start()
+
+    def wait(self, key, t0) -> None:
+        """Reads a dry-run process to its end; its wall is its own."""
+        self.outs[key] = self.procs[key].communicate()[0]
+        self.walls[key] = time.time() - t0
+
+    def stop(self) -> None:
+        for proc in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    def finish(self, key):
+        proc = self.procs[key]
+        self.waiters[key].join(timeout=600)
+        if self.waiters[key].is_alive():
+            proc.kill()
+            self.waiters[key].join()
+        out = self.outs[key]
+        check(proc.returncode == 0, f"dry-run {key}: {out[-3000:]}")
+        return out
+
+    # -- 8a
+    def card_rates(self):
+        from repro_torch.launch.roofline import H100_DATASHEET, Rates
+        torch = self.torch
+        g = torch.Generator(device=self.dev).manual_seed(self.seed)
+        a, b = (torch.randn((MATMUL_N, MATMUL_N), generator=g,
+                            device=self.dev, dtype=torch.bfloat16)
+                for _ in range(2))
+        mm_ms = cuda_ms(torch, lambda: torch.matmul(a, b), reps=20)
+        flops = 2 * MATMUL_N ** 3 / (mm_ms * 1e-3)
+        del a, b
+        x = torch.ones(READ_BYTES // 4, device=self.dev, dtype=torch.float32)
+        rd_ms = cuda_ms(torch, lambda: x.sum(), reps=10)
+        rate = READ_BYTES / (rd_ms * 1e-3)
+        del x
+        torch.cuda.empty_cache()
+        rates = Rates(flops_per_s=flops, bytes_per_s=rate,
+                      link_bytes_per_s=H100_DATASHEET.link_bytes_per_s,
+                      source=f"measured on {self.smi}: bf16 matmul "
+                             f"{MATMUL_N}^3, a {READ_BYTES >> 30} GiB read; "
+                             f"NVLink the datasheet's")
+        log(f"mesh 8a (rates): bf16 torch.matmul {MATMUL_N}^3 warm "
+            f"{mm_ms:.4f} ms = {flops / 1e12:.1f} TFLOP/s (datasheet "
+            f"{H100_DATASHEET.flops_per_s / 1e12:.0f}); one read of "
+            f"{READ_BYTES >> 30} GiB (float32 sum) {rd_ms:.4f} ms = "
+            f"{rate / 1e12:.3f} TB/s (datasheet "
+            f"{H100_DATASHEET.bytes_per_s / 1e12:.2f}); NVLink "
+            f"{rates.link_bytes_per_s / 1e9:.0f} GB/s a direction is the "
+            f"datasheet's (one card); {self.card()}")
+        return rates
+
+    # -- 8b
+    def mesh_steps(self):
+        import socket
+        import torch.distributed as dist
+        from repro_torch.configs import get_config
+        from repro_torch.data.pipeline import TokenPipeline
+        from repro_torch.launch.mesh import make_local_mesh
+        from repro_torch.models import sharding
+        from repro_torch.models.api import Model
+        from repro_torch.models.schema import tree_leaves
+        from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+        from repro_torch.train.trainer import TrainConfig, TrainLoop
+        torch = self.torch
+        check(len(self.train.first_steps) == MESH_STEPS,
+              "phase 7 recorded no steps for phase 8b")
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                                rank=0, world_size=1)
+        try:
+            mesh = make_local_mesh(device_type="cuda")
+            model = Model.from_config(get_config(LM_ARCH))
+            pipe = TokenPipeline(vocab=model.cfg.vocab, global_batch=TRAIN_B,
+                                 seq_len=TRAIN_S, seed=self.seed)
+            tcfg = TrainConfig(attn_mode="dense", remat=None,
+                               total_steps=TRAIN_STEPS)
+            same = []
+
+            def compare(step, p, o, h):
+                loss, master = self.train.first_steps[step]
+                same.append(h["loss"] == loss and all(
+                    torch.equal(w.to_local(), q.to(self.dev))
+                    for w, q in zip(tree_leaves(o["master"]), master)))
+
+            with sharding.policy(mesh):
+                params = model.init(self.seed,
+                                    shardings=model.param_shardings())
+                placed = {str(tuple(t.placements))
+                          for t in tree_leaves(params)}
+                loop = TrainLoop(model, AdamWConfig(), tcfg)
+                t0 = sync_time(torch)
+                _, _, hist = loop.run(
+                    params, (pipe.batch_at(s) for s in range(MESH_STEPS)),
+                    opt_state=init_opt_state(params), hooks=[compare])
+                wall = sync_time(torch, t0)
+            del params, loop
+        finally:
+            dist.destroy_process_group()
+        torch.cuda.empty_cache()
+        check(len(same) == MESH_STEPS and all(same),
+              f"mesh policy: steps under the (1, 1) mesh != phase 7's "
+              f"unsharded steps: {same}")
+        log(f"mesh 8b (policy on the card): {LM_ARCH} at full width "
+            f"(bf16, {TRAIN_B} x {TRAIN_S}, AdamWConfig()) on a one-rank "
+            f"NCCL group's {tuple(mesh.shape)} {mesh.mesh_dim_names} mesh, "
+            f"params DTensors placed {sorted(placed)}: {MESH_STEPS} "
+            f"TrainLoop steps under sharding.policy in {wall:.2f} s (steps "
+            f"{[round(h['sec'] * 1e3, 1) for h in hist]} ms; phase 7's "
+            f"warm step {self.train.step_s * 1e3:.1f} ms); the loss and "
+            f"every fp32 master leaf after each step equal phase 7's "
+            f"unsharded steps bit for bit; {self.card()}")
+
+    # -- 8c
+    def roofline_vs_card(self, rates):
+        from repro_torch.launch import dryrun
+        cell = json.loads((self.out / f"{LM_ARCH}__phase7__local1x1.json"
+                           ).read_text())
+        c = cell["counts"]
+        card = dryrun.terms_of(c, rates)
+        sheet = dryrun.terms_of(c)
+        measured = self.train.step_s
+        check(card.step_time_s <= measured,
+              f"roofline: the bound {card.step_time_s * 1e3:.1f} ms of "
+              f"phase 7's cell at the card's rates exceeds its measured "
+              f"warm step {measured * 1e3:.1f} ms: the count is wrong")
+        opt = c["by_scope"].get("optimizer", {})
+        log(f"mesh 8c (roofline vs the card): phase 7's cell ({LM_ARCH}, "
+            f"{TRAIN_B} x {TRAIN_S}, no remat, (1, 1) mesh) traced on meta "
+            f"in {cell['trace_s']} s (a process of its own since phase 8's "
+            f"start): "
+            f"{c['flops']:.4e} FLOP, {c['bytes']:.4e} bytes accessed "
+            f"(optimizer {opt.get('bytes', 0):.4e}), peak live "
+            f"{c['peak_bytes'] / 1e9:.2f} GB, collectives "
+            f"{c['coll_counts']}; at the card's rates compute "
+            f"{card.compute_s * 1e3:.2f} ms, memory {card.memory_s * 1e3:.2f} "
+            f"ms -> bound {card.step_time_s * 1e3:.2f} ms ({card.dominant}); "
+            f"at the datasheet's {sheet.step_time_s * 1e3:.2f} ms; measured "
+            f"warm step {measured * 1e3:.1f} ms: bound / measured "
+            f"{card.step_time_s / measured:.3f}; model FLOPs ratio "
+            f"{cell['roofline']['model_flops_ratio']:.3f}")
+
+    # -- 8d
+    def production(self, outs):
+        for key, out in outs.items():
+            if not key.startswith("8d"):
+                continue
+            log(f"mesh {key} (python -m repro_torch.launch.dryrun, "
+                f"{self.walls[key]:.1f} s since phase 8's start): "
+                + " | ".join(
+                    ln for ln in out.splitlines()
+                    if ln.startswith("[") and not ln.startswith("[rank")))
+        for f in sorted(self.out.glob("decouplevs-ann__*.json")):
+            c = json.loads(f.read_text())
+            log(f"mesh 8d {c['mesh']}: {c['n_shards']} shards of "
+                f"{c['per_shard']:,} vectors, per rank "
+                f"{c['total_bytes'] / 1e9:.3f} GB ("
+                + ", ".join(f"{k} {v['shape']} {v['dtype']}"
+                            for k, v in c["tensors"].items())
+                + f"), {c['slot_words']} slot words a vertex, merge "
+                f"{c['merge']} {c['merge_comm_rows']} rows a query "
+                f"({c['merge_cost_us']:.1f} us modeled); shape-only, no "
+                f"trace: the traversal reads a flag each hop")
+        c = json.loads((self.out / f"{LM_ARCH}__train_4k__pod16x16.json"
+                        ).read_text())
+        r, n = c["roofline"], c["counts"]
+        log(f"mesh 8d {LM_ARCH} train_4k pod16x16 (rank 0 of 256, "
+            f"{n['microbatches']} microbatches, remat full, loss_chunk "
+            f"256): {n['flops']:.4e} FLOP, {n['bytes']:.4e} bytes accessed, "
+            f"collectives {n['coll_counts']} "
+            f"({ {k: f'{v:.3e}' for k, v in n['coll_breakdown'].items()} } "
+            f"bytes), peak live {c['memory']['peak_gib']:.2f} GiB, trace "
+            f"{c['trace_s']} s; at the datasheet's rates compute "
+            f"{r['compute_s']:.4f} s, memory {r['memory_s']:.4f} s, "
+            f"collective {r['collective_s']:.4f} s ({r['dominant']}); model "
+            f"FLOPs ratio {r['model_flops_ratio']:.3f}")
 
 
 # ------------------------------------------------------------------ report

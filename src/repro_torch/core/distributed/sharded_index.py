@@ -501,3 +501,67 @@ def make_sharded_search(mesh: Mesh, p: SearchParams, merge: str = "hier",
             d = torch.where(keep, d, torch.inf)
         return merge_sharded(gids, d, mesh, p.k, merge)
     return run
+
+
+# ------------------------------------------------------- production dry-run
+def lower_production_search(mesh, ann_cfg, p: SearchParams | None = None,
+                            merge: str = "hier") -> dict:
+    """Shape-only pass of the paper's own workload on the production mesh
+    (the ``decouplevs-ann`` dry-run cell): the ``ShardedIndex`` one rank
+    holds as ``meta`` tensors (one shard: EF graph slots, PQ codes and
+    codebook, rerank vectors, row ids; the raw-adjacency ablation tensor
+    a 1-entry stub), with the reference's per-shard shapes, and the
+    replicated query batch. No allocation.
+
+    The dataset shards over EVERY mesh axis (traversal keeps the ``model``
+    axis idle, so using it for shards multiplies aggregate HBM): 1B
+    vectors over 256/512 shards. Returns, per rank, each tensor's shape,
+    dtype and bytes and their total, the merge's rows received per query
+    (``merge_comm_rows``) and its modeled µs (``shard_merge_cost_us``).
+
+    Nothing is traced: the port's traversal is a host loop that reads a
+    flag from the device each hop (``core/search/beam.py``), which a
+    ``meta`` tensor cannot answer, so the search's FLOPs and bytes are not
+    counted here. ``p`` (default: the reference's production
+    SearchParams) is returned with the shapes."""
+    from ..codec.elias_fano import slot_layout
+    from ..search.engine import shard_merge_cost_us
+    names = tuple(mesh.mesh_dim_names)
+    sizes = tuple(int(x) for x in mesh.shape)
+    n_shards = int(np.prod(sizes))
+    per = -(-ann_cfg.n_vectors // n_shards)
+    p = p or SearchParams(l_size=ann_cfg.l_size, beam_width=ann_cfg.beam_width,
+                          k=ann_cfg.k, rerank_batch=ann_cfg.rerank_batch,
+                          r_max=ann_cfg.r, universe=per, max_iters=64,
+                          use_ef=True, visited_hash_bits=15)
+    _, _, _, slot_words = slot_layout(ann_cfg.r, per)
+    dt = getattr(torch, ann_cfg.dtype)
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    index = ShardedIndex(
+        neighbors=meta((1, 1, ann_cfg.r), torch.int32),
+        counts=meta((1, per), torch.int32),
+        ef_slots=meta((1, per, slot_words), torch.int32),
+        pq_codes=meta((1, per, ann_cfg.pq_m), torch.uint8),
+        pq_centroids=meta((1, ann_cfg.pq_m, 256, ann_cfg.dim // ann_cfg.pq_m),
+                          torch.float32),
+        vectors=meta((1, per, ann_cfg.dim), dt),
+        medoid=meta((1,), torch.int64),
+        row_ids=meta((1, per), torch.int32))
+    tensors = dict(index._asdict(),
+                   queries=meta((ann_cfg.query_batch, ann_cfg.dim),
+                                torch.float32))
+    shapes = {k: {"shape": list(t.shape), "dtype": str(t.dtype).split(".")[-1],
+                  "bytes": t.numel() * t.element_size()}
+              for k, t in tensors.items()}
+    return {"mesh_axes": dict(zip(names, sizes)), "n_shards": n_shards,
+            "per_shard": per, "slot_words": slot_words,
+            "search_params": {k: v for k, v in p._asdict().items()
+                              if k != "kernels"},
+            "tensors": shapes,
+            "total_bytes": sum(v["bytes"] for v in shapes.values()),
+            "merge": merge,
+            "merge_comm_rows": merge_comm_rows(ann_cfg.k, sizes, merge),
+            "merge_cost_us": shard_merge_cost_us(ann_cfg.k, sizes, merge)}

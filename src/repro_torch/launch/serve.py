@@ -1,11 +1,14 @@
-"""Serving launcher: batched prefill/decode engine (+ optional RAG).
+"""Serving launcher: mesh + batched prefill/decode engine (+ optional RAG).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \\
-        --requests 8 --max-new 16 [--rag] [--device cpu]
+        --requests 8 --max-new 16 [--rag] [--device cpu] [--mesh local]
 
 Runs on the CUDA card unless ``--device`` names another device; without a
-card and without ``--device`` it raises. Times are host-clock walls around
-work that ends in a device synchronise, printed with the device's name.
+card and without ``--device`` it raises. ``--mesh`` is the training
+launcher's: ``local`` (the process group's world; one device without a
+group) or the production ``pod``/``multipod`` meshes, which need a group
+of 256 or 512 ranks. Times are host-clock walls around work that ends in
+a device synchronise, printed with the device's name.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import torch
 from ..configs import get_config, reduce_config
 from ..data.synthetic import make_token_batch
 from ..kernels.dispatch import resolve_device
+from ..models import sharding
 from ..models.api import Model
 from ..serve.engine import ServeEngine
 
@@ -31,9 +35,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="internlm2-1.8b")
     ap.add_argument("--preset", default="smoke", choices=["smoke", "full"])
-    ap.add_argument("--mesh", default="local", choices=["local"],
-                    help="one device; pod and multipod meshes are not "
-                         "ported yet")
+    ap.add_argument("--mesh", default="local",
+                    choices=["local", "pod", "multipod"])
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--max-new", type=int, default=16)
@@ -45,8 +48,15 @@ def main(argv=None):
     dev = resolve_device(args.device)
     cfg = get_config(args.arch) if args.preset == "full" \
         else reduce_config(get_config(args.arch))
+    from .train import build_mesh
+    mesh = build_mesh(args.mesh, dev)
     model = Model.from_config(cfg)
-    params = model.init(0, device=dev)
+    with sharding.policy(mesh, None):
+        return _serve(args, cfg, model, dev)
+
+
+def _serve(args, cfg, model, dev):
+    params = model.init(0, device=dev, shardings=model.param_shardings())
     engine = ServeEngine(model, params, device=dev)
     prompts = make_token_batch(cfg.vocab, args.requests, args.prompt_len)
     stats = None

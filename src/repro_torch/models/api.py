@@ -29,17 +29,25 @@ class Model:
 
     # ------------------------------------------------------------ params
     def init(self, seed: int = 0, dtype: torch.dtype | None = None,
-             device=None) -> dict:
+             device=None, shardings=None) -> dict:
         """Random params on ``device`` (None = the card), drawn from a
-        ``torch.Generator`` on that device seeded with ``seed``."""
+        ``torch.Generator`` on that device seeded with ``seed``; placed leaf
+        by leaf by ``shardings`` (``param_shardings()``) where given."""
         dev = resolve_device(device)
         g = torch.Generator(device=dev).manual_seed(seed)
         return schema_lib.init_params(self.schema, g,
-                                      dtype or torch_dtype(self.cfg.dtype))
+                                      dtype or torch_dtype(self.cfg.dtype),
+                                      shardings)
 
     def abstract_params(self, dtype: torch.dtype | None = None) -> dict:
         return schema_lib.abstract_params(self.schema,
                                           dtype or torch_dtype(self.cfg.dtype))
+
+    def param_shardings(self):
+        return schema_lib.param_shardings(self.schema)
+
+    def param_specs(self):
+        return schema_lib.param_specs(self.schema)
 
     def n_params(self) -> int:
         return schema_lib.count_params(self.schema)

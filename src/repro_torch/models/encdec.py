@@ -10,11 +10,12 @@ loops take apart once (``unstack``).
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from .layers import (attention, checkpointed, chunked_cross_entropy,
                      cross_entropy_loss, rms_norm, rope)
 from .schema import ParamSpec, unstack
-from .sharding import shard
+from .sharding import gather_dp, shard
 from .transformer import (LayerDesc, ModelConfig, _apply_mlp, _attn_schema,
                           _meta, _mlp_schema, torch_dtype)
 
@@ -58,8 +59,10 @@ def _self_attn(p, x, cfg, positions, causal, attn_mode, cache=None, pos=None):
     b, s, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     hx = rms_norm(x, p["ln1"], cfg.norm_eps)
-    q = rope((hx @ p["wq"]).reshape(b, s, h, hd), positions)
-    k = rope((hx @ p["wk"]).reshape(b, s, kvh, hd), positions)
+    q = shard(rope((hx @ p["wq"]).reshape(b, s, h, hd), positions),
+              "batch", "seq", "heads", None)
+    k = shard(rope((hx @ p["wk"]).reshape(b, s, kvh, hd), positions),
+              "batch", "seq", "kv_heads", None)
     v = (hx @ p["wv"]).reshape(b, s, kvh, hd)
     if cache is None:
         o = attention(q, k, v, mode=attn_mode, causal=causal)
@@ -74,31 +77,48 @@ def _self_attn(p, x, cfg, positions, causal, attn_mode, cache=None, pos=None):
             torch.clamp(pos + 1, max=sc)[:, None]
         o = attention(q, kc, vc, mode="dense", causal=False, kv_mask=kv_mask)
         new_cache = {"k": kc, "v": vc}
-    return x + o.reshape(b, s, h * hd) @ p["wo"], new_cache
+    return shard(x + o.reshape(b, s, h * hd) @ p["wo"], "batch", "seq",
+                 None), new_cache
 
 
 def _cross_attn(p, x, memory_kv, cfg, attn_mode):
     b, s, _ = x.shape
     h, hd = cfg.n_heads, cfg.head_dim
     hx = rms_norm(x, p["ln_x"], cfg.norm_eps)
-    q = (hx @ p["xwq"]).reshape(b, s, h, hd)
+    q = shard((hx @ p["xwq"]).reshape(b, s, h, hd), "batch", "seq",
+              "heads", None)
     k, v = memory_kv
     o = attention(q, k, v, mode=attn_mode, causal=False)
-    return x + o.reshape(b, s, h * hd) @ p["xwo"]
+    return shard(x + o.reshape(b, s, h * hd) @ p["xwo"], "batch", "seq",
+                 None)
+
+
+def _gathered(params) -> dict:
+    """The params outside the layer stacks gathered over the data axes
+    (``gather_dp``; each layer gathers its own)."""
+    return {k: v if k in ("encoder", "decoder") else gather_dp(v)
+            for k, v in params.items()}
+
+
+def _embed(params, tokens, dt):
+    return shard(F.embedding(tokens, params["embed"]).to(dt), "batch",
+                 "seq", None)
 
 
 def encode(params, cfg: ModelConfig, frames, attn_mode="flash", remat=None):
     dt = torch_dtype(cfg.dtype)
+    params = _gathered(params)
     x = frames.to(dt) @ params["frontend_proj"].to(dt)
     x = shard(x, "batch", "seq", None)
     b, se, _ = x.shape
     positions = torch.arange(se, device=x.device)[None].expand(b, se)
 
     def body(xx, blk):
+        blk = gather_dp(blk)
         xx, _ = _self_attn(blk["mixer"], xx, cfg, positions, causal=False,
                            attn_mode=attn_mode)
         xx, _, _ = _apply_mlp(blk["mlp"], xx, cfg, GELU, "train", None)
-        return xx
+        return shard(xx, "batch", "seq", None)
 
     body = checkpointed(body, "full" if remat else None)
     for blk in unstack(params["encoder"]):
@@ -123,16 +143,19 @@ def decode_train(params, cfg: ModelConfig, memory, tokens, attn_mode="flash",
     ``abstract_encdec_cache`` lays them out. ``remat`` (any mode)
     checkpoints each layer, as the reference's ``jax.checkpoint`` does."""
     dt = torch_dtype(cfg.dtype)
-    x = params["embed"][tokens].to(dt)
+    params = _gathered(params)
+    x = _embed(params, tokens, dt)
     b, st = tokens.shape
     positions = torch.arange(st, device=x.device)[None].expand(b, st)
 
     def body(xx, blk):
+        blk = gather_dp(blk)
         xx, kv = _self_attn(blk["mixer"], xx, cfg, positions, causal=True,
                             attn_mode=attn_mode)
         mkv = _memory_kv(blk["cross"], memory, cfg)
         xx = _cross_attn(blk["cross"], xx, mkv, cfg, attn_mode)
         xx, _, _ = _apply_mlp(blk["mlp"], xx, cfg, GELU, "train", None)
+        xx = shard(xx, "batch", "seq", None)
         return (xx, kv["k"], kv["v"], *mkv) if return_cache else xx
 
     body = checkpointed(body, "full" if remat else None)
@@ -181,10 +204,12 @@ def abstract_encdec_cache(cfg: ModelConfig, batch: int, s_cache: int,
 def decode_step(params, cfg: ModelConfig, cache, token, pos, attn_mode="dense"):
     """One serve-time decoder step against self- and cross-K/V caches."""
     dt = torch_dtype(cfg.dtype)
-    x = params["embed"][token].to(dt)           # [B, 1, D]
+    params = _gathered(params)
+    x = _embed(params, token, dt)               # [B, 1, D]
     positions = pos[:, None]
     ks, vs = [], []
     for i, blk in enumerate(unstack(params["decoder"])):
+        blk = gather_dp(blk)
         x, nc = _self_attn(blk["mixer"], x, cfg, positions, causal=True,
                            attn_mode="dense",
                            cache={"k": cache["k"][i], "v": cache["v"][i]},
@@ -192,6 +217,7 @@ def decode_step(params, cfg: ModelConfig, cache, token, pos, attn_mode="dense"):
         x = _cross_attn(blk["cross"], x, (cache["xk"][i], cache["xv"][i]),
                         cfg, attn_mode)
         x, _, _ = _apply_mlp(blk["mlp"], x, cfg, GELU, "decode", None)
+        x = shard(x, "batch", "seq", None)
         ks.append(nc["k"])
         vs.append(nc["v"])
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)

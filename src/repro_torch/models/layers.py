@@ -18,7 +18,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .sharding import shard
+from .sharding import is_dtensor, shard
 
 NEG_INF = -1e30
 
@@ -153,7 +153,61 @@ def attention_flash(q, k, v, *, causal=True, window=None, q_off=0, kv_off=0,
 
 def attention(q, k, v, *, mode="dense", **kw):
     fn = attention_dense if mode == "dense" else attention_flash
+    if is_dtensor(q):
+        return _attention_on_shards(fn, q, k, v, **kw)
     return fn(q, k, v, **kw)
+
+
+def _attention_on_shards(fn, q, k, v, *, q_off=0, kv_mask=None, **kw):
+    """Attention of DTensor q [B,Sq,H,hd], k/v [B,Skv,KVH,hd] as the plain
+    ``fn`` on each rank's own rows and heads: attention is head-local, and
+    DTensor cannot split the head axis into (KV head, group), nor run the
+    causal mask of a sequence shard. K/V (and ``kv_mask``) are
+    redistributed to q's batch and head shards, whole along the sequence
+    (the all-gather a sequence-sharded cache needs); a rank's query heads
+    take their own KV heads' slice (GQA groups of H/KVH), and a sequence
+    shard its offset in the causal mask. On a one-rank mesh the plain
+    ``fn`` runs on the whole tensors."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset as local_of
+    mesh, qpl = q.device_mesh, tuple(q.placements)
+    if any(not isinstance(p, (Shard, Replicate)) or
+           (isinstance(p, Shard) and p.dim == 3) for p in qpl):
+        raise NotImplementedError(f"attention on query placements {qpl}")
+
+    def like_q(t, head_ok):
+        want = tuple(p if p == Shard(0) or (p == Shard(2) and head_ok)
+                     else Replicate() for p in qpl)
+        return t.redistribute(mesh, want)
+
+    kv_heads_sharded = all(kp == Shard(2) for p, kp in
+                           zip(qpl, k.placements) if p == Shard(2))
+    k = like_q(k, kv_heads_sharded)
+    v = like_q(v, kv_heads_sharded)
+    _, q_at = local_of(q.shape, mesh, qpl)
+    _, k_at = local_of(k.shape, mesh, k.placements)
+    # a rank's queries reach only part of whole K/V: its K/V gradient is a
+    # partial sum over the mesh dimensions that split the queries
+    kv_grad = tuple(Partial() if isinstance(p, Shard) and kp == Replicate()
+                    else kp for p, kp in zip(qpl, k.placements))
+    ql = q.to_local()
+    kl = k.to_local(grad_placements=kv_grad)
+    vl = v.to_local(grad_placements=kv_grad)
+    g = q.shape[2] // k.shape[2]
+    h0, h1 = q_at[2], q_at[2] + ql.shape[2]
+    a, b = h0 // g - k_at[2], (h1 - 1) // g + 1 - k_at[2]
+    if ql.shape[2] % (b - a):
+        raise NotImplementedError(f"query heads [{h0}, {h1}) split a GQA "
+                                  f"group of {g}")
+    if kv_mask is not None:
+        if is_dtensor(kv_mask):
+            kv_mask = like_q(kv_mask, False).to_local()
+        else:
+            kv_mask = kv_mask[q_at[0]:q_at[0] + ql.shape[0]]
+    out = fn(ql, kl[:, :, a:b], vl[:, :, a:b], q_off=q_off + q_at[1],
+             **({"kv_mask": kv_mask} if kv_mask is not None else {}), **kw)
+    return DTensor.from_local(out, mesh, qpl, run_check=False)
 
 
 # --------------------------------------------------------------------- MLPs
@@ -208,12 +262,20 @@ def checkpointed(fn, mode: str | None = "full"):
     return run
 
 
+def _label_logit(logits, labels):
+    """[..., V] logits at [...] labels, as [..., 1]. The trailing 1 stays
+    until the value meets ``lse``: on vocab-sharded DTensor logits the
+    gather's result is a masked partial sum, and DTensor reduces it only
+    with the mask's own shape."""
+    return torch.gather(logits, -1, labels[..., None].long())
+
+
 def cross_entropy_loss(logits, labels, z_loss: float = 1e-4):
     """Mean token cross entropy (+ z-loss for stability at big vocab)."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    loss = (lse - ll).mean()
+    ll = _label_logit(logits, labels)
+    loss = (lse[..., None] - ll).mean()
     if z_loss:
         loss = loss + z_loss * (lse ** 2).mean()
     return loss
@@ -235,13 +297,14 @@ def chunked_cross_entropy(x, head, labels, *, chunk: int = 256,
     valid = (torch.arange(n * c, device=x.device) < s).reshape(n, c)
 
     def chunk_loss(xc, lc, vc):
-        logits = (xc @ head.to(xc.dtype)).float()
+        logits = shard(xc @ head.to(xc.dtype), "batch", "seq",
+                       "vocab").float()
         if softcap:
             logits = torch.tanh(logits / softcap) * softcap
-        lse = torch.logsumexp(logits, dim=-1)
-        ll = torch.gather(logits, -1, lc[..., None].long())[..., 0]
+        lse = torch.logsumexp(logits, dim=-1)[..., None]
+        ll = _label_logit(logits, lc)
         per_tok = (lse - ll) + z_loss * lse ** 2
-        return (per_tok * vc[None, :]).sum()
+        return (per_tok * vc[None, :, None]).sum()
 
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(n):

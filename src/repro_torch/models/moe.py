@@ -19,7 +19,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
-from .sharding import shard
+from .sharding import is_dtensor, shard, sharding_for_shape
 
 
 @dataclass(frozen=True)
@@ -76,38 +76,89 @@ def _combine_one_group(y_e, meta, t, d):
                        ).index_add_(0, st_tok, contrib)
 
 
+def _route(x, router, e: int, k: int, cap: int):
+    """The row-local half before the experts: routing, the load-balance
+    statistics and the grouped dispatch, one group a batch row (a loop over
+    rows stands for the reference's vmap). x [B, S, D] -> x_e [B, E, C, D],
+    the combine's slot, token, gate and keep rows [B, S*K] each, the router
+    probabilities summed over the tokens [E] and the tokens routed to each
+    expert [E]."""
+    b, s, d = x.shape
+    probs, _ = router_probs(x.reshape(-1, d), router)          # [T, E]
+    gate_vals, gate_idx = stable_topk(probs, k)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+    counts = torch.zeros((e,), dtype=torch.float32, device=x.device
+                         ).index_add_(0, gate_idx.reshape(-1),
+                                      torch.ones((gate_idx.numel(),),
+                                                 dtype=torch.float32,
+                                                 device=x.device))
+    gv = gate_vals.reshape(b, s, k)
+    gi = gate_idx.reshape(b, s, k)
+    groups = [_dispatch_one_group(x[i], gi[i], gv[i], e, k, cap)
+              for i in range(b)]
+    meta = [torch.stack(m) for m in zip(*(g[1] for g in groups))]
+    return (torch.stack([g[0] for g in groups]), *meta, probs.sum(0),
+            counts)
+
+
+def _combine(y_e, slot, st_tok, sg, keep, s: int):
+    """The row-local half after the experts: each row's expert outputs
+    back to its ``s`` tokens. y_e [B, E, C, D] -> [B, S, D]."""
+    return torch.stack([_combine_one_group(
+        y_e[i], (slot[i], st_tok[i], sg[i], keep[i]), s, y_e.shape[-1])
+        for i in range(y_e.shape[0])])
+
+
+def _on_row_shards(route, combine, shape):
+    """``route`` and ``combine`` of a DTensor x [B, S, D], each run on every
+    rank's own batch rows, which are their own dispatch groups (the stable
+    sorts and the dispatch and combine scatters have no DTensor rule). The
+    token statistics and the router's gradient are partial sums over the
+    mesh dimensions that split the rows."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    rows = sharding_for_shape(shape, "batch", None, None)
+    mesh, row = rows.mesh, rows.placements
+    part = tuple(Partial() if p.is_shard() else Replicate() for p in row)
+    rep = (Replicate(),) * mesh.ndim
+    route = local_map(route, out_placements=(row,) * 5 + (part, part),
+                      in_placements=(row, rep), in_grad_placements=(row, part),
+                      redistribute_inputs=True, device_mesh=mesh)
+    combine = local_map(combine, out_placements=(row,),
+                        in_placements=(row,) * 5, redistribute_inputs=True,
+                        device_mesh=mesh)
+    return route, combine
+
+
 def moe_layer(x, params, cfg: MoEConfig, phase: str = "train"):
     """x [B, S, D] -> (y [B, S, D], aux_loss scalar).
 
     GShard-style grouped dispatch: each batch row is its own dispatch group
-    with its own capacity (a loop over rows stands for the reference's
-    vmap).
+    with its own capacity. On a DTensor x the routing and the combine run
+    on each rank's own rows (``_on_row_shards``) and the experts' FFN on
+    DTensors, sharded by expert.
     """
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     cap = max(1, int(-(-s * k * cfg.capacity_factor // e)))
 
-    probs, _ = router_probs(x.reshape(-1, d), params["router"])  # [T, E]
-    gate_vals, gate_idx = stable_topk(probs, k)
-    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
-                                        min=1e-9)
+    def route(xr, router):
+        return _route(xr, router, e, k, cap)
+
+    def combine(*a):
+        return _combine(*a, s)
+
+    if is_dtensor(x):
+        route, combine = _on_row_shards(route, combine, x.shape)
+    x_e, *meta, probs_sum, counts = route(x, params["router"])
 
     # ---- load-balance auxiliary loss (Switch/GShard form, global)
     t_all = b * s
-    me = probs.mean(0)
-    ce = torch.zeros((e,), dtype=torch.float32, device=x.device).index_add_(
-        0, gate_idx.reshape(-1),
-        torch.ones((t_all * k,), dtype=torch.float32, device=x.device)
-    ) / (t_all * k)
+    me = probs_sum / t_all
+    ce = counts / (t_all * k)
     aux = e * (me * ce).sum()
 
-    # ---- grouped dispatch, one group a batch row
-    gv = gate_vals.reshape(b, s, k)
-    gi = gate_idx.reshape(b, s, k)
-    xs = x.reshape(b, s, d)
-    groups = [_dispatch_one_group(xs[i], gi[i], gv[i], e, k, cap)
-              for i in range(b)]
-    x_e = torch.stack([g[0] for g in groups])                # [B, E, C, D]
     if phase == "decode":
         x_e = shard(x_e, None, "expert", None, "expert_embed")
     else:
@@ -120,9 +171,7 @@ def moe_layer(x, params, cfg: MoEConfig, phase: str = "train"):
     y_e = shard(y_e, "batch", "expert", None, None)
 
     # ---- combine back per group
-    y = torch.stack([_combine_one_group(y_e[i], groups[i][1], s, d)
-                     for i in range(b)])
-    y = shard(y, "batch", "seq", None)
+    y = shard(combine(y_e, *meta), "batch", "seq", None)
 
     # ---- shared experts (DeepSeek): always-on dense path
     if cfg.n_shared:

@@ -2,8 +2,9 @@
 shapes, logical sharding axes and init scales.
 
 From a schema we derive (a) random init on a device from a
-``torch.Generator``, (b) abstract params (``meta`` tensors, no allocation)
-and (c) the parameter count. Params are nested dicts of tensors with the
+``torch.Generator``, (b) abstract params (``meta`` tensors, no allocation),
+(c) each leaf's placement under the active sharding policy and (d) the
+parameter count. Params are nested dicts of tensors with the
 reference's keys and its stacked ``[n_periods, ...]`` leaves, so a
 reference pytree carries over leaf by leaf (``params_from_numpy``,
 ``opt_state_from_numpy``) and back (``to_numpy``).
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from ..kernels.dispatch import resolve_device
+from . import sharding
 
 
 @dataclass(frozen=True)
@@ -64,11 +66,14 @@ def unstack(tree) -> list:
 
 
 def init_params(schema, generator: torch.Generator,
-                dtype: torch.dtype = torch.float32) -> dict:
+                dtype: torch.dtype = torch.float32, shardings=None) -> dict:
     """Random params on ``generator``'s device: ``normal`` leaves are
     N(0, 1) * scale (1/sqrt(fan_in) unless given), ``zeros``/``ones``
     constant, ``a_log`` the S4/Mamba row log(1..d_state). The reference's
-    formulas; the draws are the generator's, not ``jax.random``'s."""
+    formulas; the draws are the generator's, not ``jax.random``'s.
+    ``shardings`` (``param_shardings``'s tree) places each leaf as soon as
+    it is drawn: a rank holds its own shards and one full leaf at a time,
+    the same values as the full init's."""
     dev = generator.device
 
     def init(spec: ParamSpec):
@@ -86,13 +91,27 @@ def init_params(schema, generator: torch.Generator,
                         device=dev)
         return x.mul_(scale).to(dtype)
 
-    return tree_map(init, schema)
+    if shardings is None:
+        return tree_map(init, schema)
+    return tree_map(lambda spec, sh: sharding.distribute(init(spec), sh),
+                    schema, shardings)
 
 
 def abstract_params(schema, dtype: torch.dtype = torch.float32) -> dict:
     """``meta`` tensors of every leaf's shape and dtype (nothing allocated)."""
     return tree_map(lambda s: torch.empty(s.shape, dtype=dtype,
                                           device="meta"), schema)
+
+
+def param_shardings(schema):
+    """Tree of ``sharding.NamedSharding`` (None when no policy is active)."""
+    return tree_map(lambda s: sharding.sharding_for_shape(s.shape, *s.axes),
+                    schema)
+
+
+def param_specs(schema):
+    """Tree of specs (a tuple an axis) under the active policy."""
+    return tree_map(lambda s: sharding.spec(*s.axes), schema)
 
 
 def count_params(schema) -> int:
@@ -132,13 +151,18 @@ def opt_state_from_numpy(state, device=None) -> dict:
 
 
 def host_bits(t) -> np.ndarray:
-    """A tensor as a host numpy array; bfloat16 as its uint16 bits (numpy
-    has no bfloat16). Anything else through ``np.asarray``."""
+    """A tensor as a host numpy array (a DTensor as its full logical
+    array, which every rank of its mesh must ask for); bfloat16 as raw
+    2-byte voids (``|V2``), the bytes the reference's ``np.asarray`` of an
+    ml_dtypes bfloat16 array stores (numpy has no bfloat16). Anything else
+    through ``np.asarray``."""
     if not isinstance(t, torch.Tensor):
         return np.asarray(t)
+    if sharding.is_dtensor(t):
+        t = t.full_tensor()
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
-        return t.view(torch.int16).numpy().view(np.uint16)
+        return t.view(torch.int16).numpy().view(np.dtype("V2"))
     return t.numpy()
 
 

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from .layers import checkpointed
+from .sharding import is_dtensor, shard, sharding_for_shape
 
 
 @dataclass(frozen=True)
@@ -169,39 +170,18 @@ def mamba_forward(x, p, mcfg: MambaConfig, state=None, mode: str = "chunk"):
 def _rwkv_mix(x, x_prev, mu):
     """Token shift interpolation; x_prev is x_{t-1} (state for decode)."""
     xs = torch.cat([x_prev[:, None], x[:, :-1]], 1)
-    return x + (xs - x) * mu[None, None]
+    return shard(x + (xs - x) * mu[None, None], "batch", "seq", None)
 
 
-def rwkv_time_mix(x, p, rcfg: RWKVConfig, state=None, mode: str = "chunk",
-                  chunk: int = 32):
-    """RWKV-6 time mixing. x [B, S, D] -> (y, new_state).
-
-    state = (x_prev [B, D], s [B, H, dk, dv] recurrent matrix state).
-    Recurrence (per head):  y_t = r_t (S_{t-1} + diag(u) k_t^T v_t)
-                            S_t = diag(w_t) S_{t-1} + k_t^T v_t
-    with data-dependent decay w_t = exp(-exp(w0 + tanh(x_w W1) W2)).
-    """
-    b, s, d = x.shape
-    dk = rcfg.head_dim
-    h = p["w_r"].shape[1] // dk
-    x_prev = state[0] if state is not None else \
-        torch.zeros((b, d), dtype=x.dtype, device=x.device)
-    s0 = state[1].float() if state is not None else \
-        torch.zeros((b, h, dk, dk), dtype=torch.float32, device=x.device)
-
-    xr = _rwkv_mix(x, x_prev, p["mu_r"])
-    xk = _rwkv_mix(x, x_prev, p["mu_k"])
-    xv = _rwkv_mix(x, x_prev, p["mu_v"])
-    xw = _rwkv_mix(x, x_prev, p["mu_w"])
-    xg = _rwkv_mix(x, x_prev, p["mu_g"])
-    r = (xr @ p["w_r"]).reshape(b, s, h, dk).float()
-    k = (xk @ p["w_k"]).reshape(b, s, h, dk).float()
-    v = (xv @ p["w_v"]).reshape(b, s, h, dk).float()
-    g = F.silu(xg @ p["w_g"])
-    logw = -torch.exp(p["w0"].reshape(h, dk)[None, None] +
-                      (torch.tanh(xw @ p["w1"]) @ p["w2"]).reshape(
-                          b, s, h, dk).float())                # <= 0
-    u = p["u"].float()                                         # [H, dk]
+def _wkv(r, k, v, logw, u, s0, mode, chunk):
+    """The RWKV-6 recurrence of ``rwkv_time_mix`` over r/k/v/logw [B, S,
+    H, dk], u [H, dk] and the entering state s0 [B, H, dk, dk] (None:
+    zeros) -> (y [B, S', H, dk], the state after the last token). Each
+    batch row and head runs on its own."""
+    b, s, h, dk = r.shape
+    if s0 is None:
+        s0 = torch.zeros((b, h, dk, dk), dtype=torch.float32,
+                         device=r.device)
 
     def chunk_step(s_in, rc, kc, vc, lwc):
         tc = rc.shape[1]                         # [B, Tc, H, dk]
@@ -211,7 +191,7 @@ def rwkv_time_mix(x, p, rcfg: RWKVConfig, state=None, mode: str = "chunk",
         y_inter = torch.einsum("bthd,bhde->bthe", rc * torch.exp(lprev), s_in)
         # intra-chunk pairwise (s < t), exponent lprev_t - lc_s <= 0
         pair = lprev[:, :, None] - lc[:, None]   # [B, T, S, H, dk]
-        tidx = torch.arange(tc, device=x.device)
+        tidx = torch.arange(tc, device=rc.device)
         mask = (tidx[:, None] > tidx[None, :])[None, :, :, None, None]
         # minimum, not clamp: at pair == 0 (s = t - 1) both halve the
         # gradient, as jnp.minimum does
@@ -252,6 +232,70 @@ def rwkv_time_mix(x, p, rcfg: RWKVConfig, state=None, mode: str = "chunk",
             ys.append(y_i)
         y = torch.cat(ys, 1)
 
+    return y, s_new
+
+
+def _wkv_on_shards(r, k, v, logw, u, s0, mode, chunk):
+    """``_wkv`` of DTensors on each rank's own batch rows and heads (a
+    scan has no DTensor rule; the recurrence is row- and head-local), the
+    sequence whole on every rank."""
+    from torch.distributed.tensor import Partial, Shard
+    from torch.distributed.tensor.experimental import local_map
+    b, _, h, dk = r.shape
+    bshd = sharding_for_shape(r.shape, "batch", None, "heads", None)
+    state = sharding_for_shape((b, h, dk, dk), "batch", "heads", None, None)
+    heads = sharding_for_shape(u.shape, "heads", None)
+    # u meets every rank's own rows: its gradient is a partial sum over
+    # the mesh dimensions that split them
+    u_grad = tuple(Partial() if p == Shard(0) else q
+                   for p, q in zip(bshd.placements, heads.placements))
+    s_pl = None if s0 is None else state.placements
+    fn = local_map(
+        lambda *a: _wkv(*a, mode, chunk),
+        out_placements=(bshd.placements, state.placements),
+        in_placements=(bshd.placements,) * 4 + (heads.placements, s_pl),
+        in_grad_placements=(bshd.placements,) * 4 + (u_grad, s_pl),
+        redistribute_inputs=True, device_mesh=bshd.mesh)
+    return fn(r, k, v, logw, u, s0)
+
+
+def rwkv_time_mix(x, p, rcfg: RWKVConfig, state=None, mode: str = "chunk",
+                  chunk: int = 32):
+    """RWKV-6 time mixing. x [B, S, D] -> (y, new_state).
+
+    state = (x_prev [B, D], s [B, H, dk, dv] recurrent matrix state).
+    Recurrence (per head):  y_t = r_t (S_{t-1} + diag(u) k_t^T v_t)
+                            S_t = diag(w_t) S_{t-1} + k_t^T v_t
+    with data-dependent decay w_t = exp(-exp(w0 + tanh(x_w W1) W2)).
+    """
+    b, s, d = x.shape
+    dk = rcfg.head_dim
+    h = p["w_r"].shape[1] // dk
+    x_prev = state[0] if state is not None else \
+        torch.zeros_like(x[:, 0])
+    s0 = state[1].float() if state is not None else None
+
+    xr = _rwkv_mix(x, x_prev, p["mu_r"])
+    xk = _rwkv_mix(x, x_prev, p["mu_k"])
+    xv = _rwkv_mix(x, x_prev, p["mu_v"])
+    xw = _rwkv_mix(x, x_prev, p["mu_w"])
+    xg = _rwkv_mix(x, x_prev, p["mu_g"])
+    def heads(t):           # a projection onto the heads, [B, S, H*dk]
+        return shard(t, "batch", "seq", "heads")
+
+    r = heads(xr @ p["w_r"]).reshape(b, s, h, dk).float()
+    k = heads(xk @ p["w_k"]).reshape(b, s, h, dk).float()
+    v = heads(xv @ p["w_v"]).reshape(b, s, h, dk).float()
+    g = heads(F.silu(xg @ p["w_g"]))
+    lora = shard(torch.tanh(xw @ p["w1"]), "batch", "seq", None)
+    logw = -torch.exp(p["w0"].reshape(h, dk)[None, None] +
+                      heads(lora @ p["w2"]).reshape(b, s, h, dk).float())
+    u = p["u"].float()                                         # [H, dk]
+    if is_dtensor(r):
+        y, s_new = _wkv_on_shards(r, k, v, logw, u, s0, mode, chunk)
+    else:
+        y, s_new = _wkv(r, k, v, logw, u, s0, mode, chunk)
+
     # per-head group norm, gate, output
     y32 = y.reshape(b, -1, h, dk)
     mean = y32.mean(-1, keepdim=True)
@@ -259,7 +303,7 @@ def rwkv_time_mix(x, p, rcfg: RWKVConfig, state=None, mode: str = "chunk",
     y32 = (y32 - mean) * torch.rsqrt(var + 1e-5)
     y_out = (y32.reshape(b, -1, h * dk).to(x.dtype) *
              p["ln_x"][None, None]) * g
-    out = y_out @ p["w_o"]
+    out = shard(y_out @ p["w_o"], "batch", "seq", None)
     return out, (x[:, -1], s_new)
 
 
@@ -267,9 +311,10 @@ def rwkv_channel_mix(x, p, state=None):
     """RWKV FFN with token shift. state = x_prev [B, D]."""
     b, s, d = x.shape
     x_prev = state if state is not None else \
-        torch.zeros((b, d), dtype=x.dtype, device=x.device)
+        torch.zeros_like(x[:, 0])
     xk = _rwkv_mix(x, x_prev, p["mu_kc"])
     xr = _rwkv_mix(x, x_prev, p["mu_rc"])
     rr = torch.sigmoid(xr @ p["w_rc"])
-    kk = torch.square(torch.relu(xk @ p["w_kc"]))
-    return rr * (kk @ p["w_vc"]), x[:, -1]
+    kk = shard(torch.square(torch.relu(xk @ p["w_kc"])), "batch", "seq",
+               "ffn")
+    return rr * shard(kk @ p["w_vc"], "batch", "seq", None), x[:, -1]

@@ -22,12 +22,13 @@ import math
 from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 
 from .layers import (attention, checkpointed, chunked_cross_entropy,
                      cross_entropy_loss, gelu_mlp, rms_norm, rope, swiglu)
 from .moe import MoEConfig, moe_layer
 from .schema import ParamSpec, tree_map, unstack
-from .sharding import shard
+from .sharding import gather_dp, shard
 from .ssm import (MambaConfig, RWKVConfig, mamba_forward, rwkv_channel_mix,
                   rwkv_time_mix)
 
@@ -360,6 +361,7 @@ def _apply_layer(desc, p, x, cfg, positions, phase, cache, attn_mode,
                                   cache, attn_mode, ssm_mode)
     x = shard(x, "batch", "seq", None)
     x, aux, extra = _apply_mlp(p["mlp"], x, cfg, desc, phase, cache)
+    x = shard(x, "batch", "seq", None)
     new_cache = None if phase == "train" else {**(mixer_cache or {}), **extra}
     return x, aux, new_cache
 
@@ -384,7 +386,12 @@ def forward(params, cfg: ModelConfig, tokens, *, phase="train", cache=None,
         raise ValueError(f"unknown phase {phase!r}")
     b, s = tokens.shape
     dt = torch_dtype(cfg.dtype)
-    x = params["embed"][tokens].to(dt)
+    params = {k: v if k in ("head", "period", "tail") else gather_dp(v)
+              for k, v in params.items()}
+    # F.embedding, not indexing: DTensor has a rule for the embedding's
+    # backward on a vocab-sharded table, and its index_put one fails there
+    x = shard(F.embedding(tokens, params["embed"]).to(dt), "batch", "seq",
+              None)
     if cfg.normalize_embed:
         x = x * math.sqrt(cfg.d_model)
     if cfg.frontend and frontend_embeds is not None:
@@ -398,8 +405,8 @@ def forward(params, cfg: ModelConfig, tokens, *, phase="train", cache=None,
 
     def make_layer(desc):
         def f(p, xx, cj):
-            return _apply_layer(desc, p, xx, cfg, positions, phase, cj,
-                                attn_mode, ssm_mode)
+            return _apply_layer(desc, gather_dp(p), xx, cfg, positions,
+                                phase, cj, attn_mode, ssm_mode)
         return checkpointed(f, remat)
 
     layer_fns = {d: make_layer(d)

@@ -5,6 +5,10 @@ Memory layout of large-scale practice: model params in the model's dtype
 The arithmetic is the reference's, op for op (not ``torch.optim.AdamW``,
 whose order of rounding differs); m, v and the master are updated in place,
 so a step allocates one leaf's transients at a time instead of new trees.
+Under a sharding policy the leaves are DTensors placed alike (ZeRO: the
+``embed``/``data`` axis shards the optimizer state), and the update runs
+on each leaf's local shard: it is elementwise, so its bits are the
+unsharded update's given the same global norm.
 """
 from __future__ import annotations
 
@@ -13,6 +17,7 @@ from dataclasses import dataclass
 import torch
 
 from ..models.schema import tree_leaves, tree_map
+from ..models.sharding import is_dtensor
 
 
 @dataclass(frozen=True)
@@ -25,11 +30,18 @@ class AdamWConfig:
     grad_clip: float = 1.0
 
 
+def _local(t):
+    """A DTensor's local shard (a view that in-place updates write
+    through); a plain tensor as it is."""
+    return t.to_local() if is_dtensor(t) else t
+
+
 def init_opt_state(params) -> dict:
     """Zero moments, the params upcast to fp32 (a copy) as the master, and
-    step 0, on the params' device."""
+    step 0, on the params' device (DTensor leaves: placed as the params)."""
     def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return torch.zeros_like(p, dtype=torch.float32,
+                                memory_format=torch.contiguous_format)
     dev = tree_leaves(params)[0].device
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
             "master": tree_map(lambda p: p.detach().to(torch.float32,
@@ -61,20 +73,23 @@ def adamw_update(grads, opt_state, cfg: AdamWConfig, lr_scale=1.0,
     global norm (``min(1, clip / (norm + 1e-9))``), then bias-corrected
     Adam moments and decoupled weight decay on the fp32 master of every
     leaf. ``opt_state``'s m, v and master are updated in place; its step
-    is replaced. The new params are a cast copy of the master."""
+    is replaced. The new params are a cast copy of the master. DTensor
+    leaves (grads placed as their params) update their local shards; the
+    scalars (norm, rates) are replicated."""
     step = opt_state["step"] + 1
     gnorm = global_norm(grads)
-    scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
+    scale = _local(torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0))
 
-    stepf = step.to(torch.float32)
+    stepf = _local(step).to(torch.float32)
     bc1 = 1.0 - torch.pow(cfg.b1, stepf)
     bc2 = 1.0 - torch.pow(cfg.b2, stepf)
-    lr = cfg.lr * torch.as_tensor(lr_scale, dtype=torch.float32,
-                                  device=gnorm.device)
+    lr = cfg.lr * torch.as_tensor(_local(lr_scale), dtype=torch.float32,
+                                  device=scale.device)
 
     for g, m, v, w in zip(tree_leaves(grads), tree_leaves(opt_state["m"]),
                           tree_leaves(opt_state["v"]),
                           tree_leaves(opt_state["master"])):
+        g, m, v, w = _local(g), _local(m), _local(v), _local(w)
         g = g.float() * scale
         m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
         v.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
@@ -86,4 +101,6 @@ def adamw_update(grads, opt_state, cfg: AdamWConfig, lr_scale=1.0,
                           opt_state["master"])
     new_state = {"m": opt_state["m"], "v": opt_state["v"],
                  "master": opt_state["master"], "step": step}
+    if is_dtensor(gnorm):
+        gnorm = gnorm.full_tensor()
     return new_params, new_state, {"grad_norm": gnorm, "step": step}

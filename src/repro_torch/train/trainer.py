@@ -1,16 +1,20 @@
 """Training loop substrate: microbatched gradient accumulation, remat
 policies, AdamW, LR schedule, checkpoint/restart hooks. ``make_train_step``
 builds one step (forward + backward + optimizer update), eager on the
-params' device.
+params' device. Under a sharding policy (``models/sharding.py``) the
+params are DTensors placed by ``Model.param_shardings``: the step places
+the batch by the policy and runs the same code on the mesh.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass, field
 
 import torch
 
 from ..ft.checkpoint import save_checkpoint
+from ..models import sharding
 from ..models.api import Model
 from ..models.schema import tree_leaves, tree_map, tree_unflatten
 from ..models.transformer import torch_dtype
@@ -30,20 +34,59 @@ class TrainConfig:
     total_steps: int = 10_000
 
 
+def on_mesh(params):
+    """The context a program over ``params`` runs in: DTensor params take
+    the model's plain tensors (positions, masks, accumulators) as
+    replicated; plain params need nothing."""
+    if sharding.is_dtensor(tree_leaves(params)[0]):
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+        return implicit_replication()
+    return contextlib.nullcontext()
+
+
 def value_and_grad(loss_fn, params, batch):
     """(loss, grads) of ``loss_fn(params, batch)`` by autograd, taken on
-    detached aliases of the params (which stay as they were)."""
+    detached aliases of the params (which stay as they were). DTensor
+    gradients come back placed as their params."""
     live = tree_map(lambda t: t.detach().requires_grad_(True), params)
-    loss = loss_fn(live, batch)
-    grads = torch.autograd.grad(loss, tree_leaves(live))
+    with on_mesh(params):
+        loss = loss_fn(live, batch)
+        grads = torch.autograd.grad(loss, tree_leaves(live))
+    grads = [g.redistribute(p.device_mesh, p.placements)
+             if sharding.is_dtensor(g) else g
+             for g, p in zip(grads, tree_leaves(params))]
     return loss.detach(), tree_unflatten(params, grads)
+
+
+_BATCH_AXES = {"tokens": ("batch", "seq"), "labels": ("batch", "seq"),
+               "frames": ("batch", "seq", None),
+               "frontend": ("batch", "seq", None)}
+
+
+def place_batch(batch: dict) -> dict:
+    """A batch of full tensors placed by the active policy (each rank
+    keeps its own rows; unchanged without a policy)."""
+    return {k: v if sharding.is_dtensor(v) else sharding.distribute(
+                v, sharding.sharding_for_shape(v.shape, *_BATCH_AXES[k]))
+            for k, v in batch.items()}
+
+
+def _microbatch(v, mb: int, i: int):
+    """Microbatch i of mb along the leading axis: contiguous global rows,
+    as the reference splits (a DTensor is gathered first); placed
+    afterwards, each data-parallel rank takes its share of them."""
+    if sharding.is_dtensor(v):
+        v = v.full_tensor()
+    return v.reshape((mb, v.shape[0] // mb) + v.shape[1:])[i]
 
 
 def make_train_step(model: Model, opt_cfg: AdamWConfig, tcfg: TrainConfig):
     """-> train_step(params, opt_state, batch) -> (params, opt_state, metrics).
 
-    ``batch`` is a dict of tensors on the params' device. With
-    microbatches > 1 the batch's leading axis is split, and the gradients
+    ``batch`` is a dict of tensors on the params' device, placed here by
+    the active policy. With microbatches > 1 the batch's leading axis is
+    split into runs of contiguous rows before placing, and the gradients
     are summed in fp32 over the microbatches in order and divided by their
     count (memory: one microbatch's activations); the loss is the mean of
     the microbatch losses. ``opt_state`` is updated in place
@@ -58,11 +101,12 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, tcfg: TrainConfig):
         mb = tcfg.microbatches
         if mb > 1:
             loss = None
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
+            grads = tree_map(lambda p: torch.zeros_like(
+                p, dtype=torch.float32,
+                memory_format=torch.contiguous_format), params)
             for i in range(mb):
-                part = {k: v.reshape((mb, v.shape[0] // mb) + v.shape[1:])[i]
-                        for k, v in batch.items()}
+                part = place_batch({k: _microbatch(v, mb, i)
+                                    for k, v in batch.items()})
                 l, g = value_and_grad(loss_fn, params, part)
                 loss = l if loss is None else loss + l
                 for acc, gi in zip(tree_leaves(grads), tree_leaves(g)):
@@ -71,13 +115,14 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, tcfg: TrainConfig):
             loss = loss / mb
             grads = tree_map(lambda g: g / mb, grads)
         else:
-            loss, grads = value_and_grad(loss_fn, params, batch)
+            loss, grads = value_and_grad(loss_fn, params, place_batch(batch))
         lr_scale = warmup_cosine(opt_state["step"], warmup=tcfg.warmup,
                                  total=tcfg.total_steps)
-        params, opt_state, metrics = adamw_update(
-            grads, opt_state, opt_cfg, lr_scale=lr_scale,
-            model_dtype=torch_dtype(model.cfg.dtype))
-        metrics["loss"] = loss
+        with on_mesh(params):
+            params, opt_state, metrics = adamw_update(
+                grads, opt_state, opt_cfg, lr_scale=lr_scale,
+                model_dtype=torch_dtype(model.cfg.dtype))
+        metrics["loss"] = loss.full_tensor() if sharding.is_dtensor(loss) else loss
         return params, opt_state, metrics
 
     return train_step

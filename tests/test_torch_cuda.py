@@ -1029,3 +1029,54 @@ def test_training_on_card_matches_cpu(cuda):
             p_card, s_card, _ = step(p_card, s_card, on_card)
         for a, b in zip(tree_leaves(p_cpu), tree_leaves(p_card)):
             assert float((a - b.cpu()).abs().max()) <= LM_CARD_ATOL, arch
+
+
+@pytest.mark.cuda
+def test_mesh_policy_on_card_matches_unsharded(cuda):
+    """A one-rank NCCL group's (1, 1) mesh: two make_train_step steps of
+    the reduced internlm2 (bf16) under ``sharding.policy`` give the loss
+    and the fp32 master of the unsharded steps bit for bit (every
+    collective is a one-rank copy, every local op the unsharded one)."""
+    import socket
+    import torch.distributed as dist
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.data.synthetic import make_token_batch
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import sharding
+    from repro_torch.models.api import Model
+    from repro_torch.models.schema import tree_leaves
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.train.trainer import TrainConfig, make_train_step
+    import dataclasses
+    model = Model.from_config(dataclasses.replace(
+        reduce_config(get_config("internlm2-1.8b")), dtype="bfloat16"))
+    toks = make_token_batch(model.cfg.vocab, 4, 33, seed=2)
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]).long().to(cuda),
+             "labels": torch.from_numpy(toks[:, 1:]).long().to(cuda)}
+    step = make_train_step(model, AdamWConfig(), TrainConfig(
+        remat=None, attn_mode="dense", warmup=1))
+    params = model.init(0, device=cuda)
+    opt = init_opt_state(params)
+    want = []
+    for _ in range(2):
+        params, opt, m = step(params, opt, batch)
+        want.append((m["loss"].clone(),
+                     [w.clone() for w in tree_leaves(opt["master"])]))
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_local_mesh(device_type="cuda")
+        with sharding.policy(mesh):
+            params = model.init(0, device=cuda,
+                                shardings=model.param_shardings())
+            opt = init_opt_state(params)
+            for loss, master in want:
+                params, opt, m = step(params, opt, batch)
+                assert torch.equal(m["loss"], loss)
+                for w, q in zip(tree_leaves(opt["master"]), master):
+                    assert torch.equal(w.to_local(), q)
+    finally:
+        dist.destroy_process_group()

@@ -6,9 +6,10 @@ launcher and gradient compression with the JAX reference:
 - ``HeartbeatMonitor`` and ``StragglerMitigator``: the same event logs and
   plans under the same simulated clock and step times;
 - checkpoints: the port's round trip; each package reads the other's
-  float32 checkpoint bit for bit; bfloat16 leaves, which the reference
-  writes as raw ``|V2`` and cannot restore, restore as bfloat16 in the
-  port from either package's checkpoint (ROADMAP §3);
+  float32 checkpoint bit for bit; bfloat16 leaves, which both packages
+  write as raw ``|V2`` and the reference cannot restore, restore as
+  bfloat16 in the port from either package's checkpoint, and raise under
+  a template of another dtype (ROADMAP §3);
 - ``python -m repro_torch.launch.train --device cpu`` with a restart (the
   port's tests/test_launchers.py::test_train_launcher, which fails in the
   reference);
@@ -220,6 +221,46 @@ def test_bf16_checkpoint_round_trip_and_the_reference_does_not(tmp_path):
         assert a.dtype == b.dtype and torch.equal(a, b)
 
 
+def test_port_bf16_checkpoint_holds_the_reference_bytes(tmp_path):
+    """A bfloat16 leaf saved by the port lands in the npz as ``|V2``, the
+    reference's own bytes: the reference's restore hands the ``|V2`` back
+    (which JAX refuses, as on its own files) instead of integers; the
+    port's bfloat16 round trip stays bit for bit."""
+    w = torch.tensor([1.5391, -0.2930, -2.1719]).bfloat16()
+    save_checkpoint(tmp_path, 1, {"w": w})
+    with np.load(tmp_path / "step_00000001" / "arrays.npz") as z:
+        assert z["params/w"].dtype == np.dtype("V2")
+    back, _ = jckpt.restore_checkpoint(
+        tmp_path, {"params": {"w": jnp.zeros(3, jnp.bfloat16)}})
+    assert back["params"]["w"].dtype == np.dtype("V2")
+    with pytest.raises(TypeError):
+        jnp.asarray(back["params"]["w"])
+    got, _ = restore_checkpoint(tmp_path, {"params": {"w": torch.zeros(
+        3, dtype=torch.bfloat16)}})
+    assert got["params"]["w"].dtype == torch.bfloat16
+    assert torch.equal(got["params"]["w"].view(torch.int16),
+                       w.view(torch.int16))
+
+
+@pytest.mark.parametrize("stored", ["V2", "uint16"])
+def test_bf16_payload_under_another_template_raises(tmp_path, stored):
+    """bfloat16 bits (``|V2``, or the uint16 of older port files) restore
+    only under a bfloat16 template: under float32 the restore raises and
+    names the leaf, where it used to return the integers."""
+    bits = torch.tensor([1.5391, -0.2930, -2.1719]).bfloat16().view(
+        torch.int16).numpy().view(np.dtype(stored))
+    d = tmp_path / "step_00000001"
+    d.mkdir()
+    np.savez(d / "arrays.npz", **{"params/w": bits})
+    (d / "manifest.json").write_text('{"step": 1}')
+    with pytest.raises(TypeError, match="params/w"):
+        restore_checkpoint(tmp_path, {"params": {"w": torch.zeros(3)}})
+    got, _ = restore_checkpoint(tmp_path, {"params": {"w": torch.zeros(
+        3, dtype=torch.bfloat16)}})
+    assert got["params"]["w"].view(torch.int16).tolist() == \
+        bits.view(np.int16).tolist()
+
+
 def test_opt_state_numpy_round_trip():
     """The reference's optimizer state into the port and back, bit for bit;
     bfloat16 params back to ml_dtypes bfloat16 arrays."""
@@ -270,7 +311,9 @@ def test_train_launcher_on_cpu_with_restart(tmp_path, capsys):
 
 
 def test_train_launcher_refuses_a_mesh(tmp_path):
-    with pytest.raises(NotImplementedError, match="mesh slice"):
+    """One process cannot hold the production mesh: ``--mesh pod`` raises
+    with the reference's message."""
+    with pytest.raises(RuntimeError, match="need 256 devices .*have 1"):
         launch_train.main(["--device", "cpu", "--mesh", "pod",
                            "--ckpt-dir", str(tmp_path)])
 

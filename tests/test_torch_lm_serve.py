@@ -255,7 +255,9 @@ def test_launcher_on_cpu(argv, capsys):
 
 
 def test_launcher_refuses_a_mesh():
-    with pytest.raises(SystemExit):
+    """``--mesh pod`` is accepted, and one process cannot hold the
+    production mesh: it raises with the reference's message."""
+    with pytest.raises(RuntimeError, match="need 256 devices .*have 1"):
         launch_serve.main(["--device", "cpu", "--mesh", "pod"])
 
 
