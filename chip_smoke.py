@@ -2291,9 +2291,7 @@ class Live:
                                      - self.card0) / n
         add_launches(total, dict(build.LAUNCHES))
         store = idx.handle.current().index_store
-        log(f"live merge: {t_merge:.2f} s (repair {st.t_repair_s:.2f}, "
-            f"insert {st.t_insert_s:.2f}, vector {st.t_vector_s:.2f}, store "
-            f"{st.t_store_s:.2f}, publish {st.t_publish_s:.2f}); MergeStats: "
+        log(f"live merge: {t_merge:.2f} s; MergeStats: "
             f"deleted {st.deleted}, inserted {st.inserted}, dirty vertices "
             f"{st.dirty_vertices}, blocks rewritten {st.blocks_rewritten} + "
             f"appended {st.blocks_appended} of {st.total_blocks}, write "

@@ -29,6 +29,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ... import tracing
 from .bitpack import (MASK32, WORD_BITS, as_int32_bits, pack_fixed,
                       unpack_fixed_np, unpack_fixed_torch, words_for_bits)
 
@@ -425,8 +426,10 @@ def decode_records_torch(buf: torch.Tensor, starts: torch.Tensor,
     lengths = lengths.to(torch.int64)
     last_byte = buf.shape[0] - 1
     n_all = buf[starts].to(torch.int64)
-    if r_max is None:
-        r_max = int(n_all.max()) if n_all.numel() else 0
+    if r_max is None and n_all.numel():
+        with tracing.span("ef.sync"):
+            r_max = int(n_all.max())
+    r_max = r_max or 0
     out = torch.full((starts.shape[0], r_max), -1, dtype=torch.int64,
                      device=dev)
     j = torch.arange(r_max, device=dev)
@@ -443,7 +446,8 @@ def decode_records_torch(buf: torch.Tensor, starts: torch.Tensor,
         low = (window >> (bstart & 7)) & ((1 << lw) - 1)[:, None]
         nlb = (n * lw + 7) >> 3
         nhb = lengths[a:b] - 2 - nlb
-        width = int(nhb.max()) if nhb.numel() else 0
+        with tracing.span("ef.sync"):
+            width = int(nhb.max())
         k = torch.arange(width, device=dev)
         hb = buf[((st + 2 + nlb)[:, None] + k).clamp(max=last_byte)] \
             .to(torch.int64)

@@ -30,6 +30,7 @@ from typing import NamedTuple
 
 import torch
 
+from ... import tracing
 from ...kernels import dispatch
 from ...kernels.beam_step.beam_step import stable_smallest
 from ...kernels.dispatch import KernelConfig, resolve_device
@@ -152,6 +153,13 @@ def _last_write_wins(slots: torch.Tensor, ok: torch.Tensor,
     return torch.zeros_like(ok).scatter_(1, order, last) & ok
 
 
+def _any(flag: torch.Tensor) -> bool:
+    """``flag.any()`` read back to the host: the loops' one blocking read
+    a round."""
+    with tracing.span("search.sync"):
+        return bool(flag.any())
+
+
 def traverse(index: DeviceIndex, luts: torch.Tensor, p: SearchParams):
     """Batched beam traversal: per-query LUTs [nq, M, K] ->
     (cand_ids [nq, L], cand_d [nq, L], (iters, fetched, pf_iter, pq, trace,
@@ -207,85 +215,97 @@ def traverse(index: DeviceIndex, luts: torch.Tensor, p: SearchParams):
         return valid & ~torch.gather(expanded, 1,
                                      cand_ids.clamp(0, n - 1).long())
 
+    def _frontier(cand_ids, expanded, iters):
+        # (unexpanded slots, active rows) of the candidate lists
+        unexp = _unexpanded(cand_ids, expanded)
+        return unexp, unexp.any(1) & (iters < p.max_iters)
+
     def _record(buf, ids):
         # the reference's trace.at[rows, iters].set(ids, mode="drop")
         ok = iters < buf.shape[1]
         buf[rows[ok], iters[ok].long()] = ids[ok]
 
-    while True:
-        unexp = _unexpanded(cand_ids, expanded)
-        active = unexp.any(1) & (iters < p.max_iters)
-        if not bool(active.any()):
-            break
-        frontier_d = torch.where(unexp & active[:, None], cand_d, torch.inf)
-        sel_d, sel_slot = stable_smallest(frontier_d, W)        # [nq, W]
-        sel_ids = torch.where(torch.isfinite(sel_d),
-                              torch.gather(cand_ids, 1, sel_slot), -1)
-        if use_hash:
-            expanded = expanded.scatter(
-                1, sel_slot, torch.gather(expanded, 1, sel_slot)
-                | (sel_ids >= 0))
-        else:
-            expanded[rows[:, None], torch.where(sel_ids >= 0, sel_ids,
-                                                n).long()] = True
-        fetched += (sel_ids >= 0).sum(1, dtype=torch.int32)
-        if p.trace_fetches:
-            _record(trace, sel_ids)
-        if p.trace_hints:
-            # Provisional frontier for round r+1, read BEFORE this round's
-            # neighbours merge: the top-W unexpanded survivors of the list.
-            prov_d = torch.where(_unexpanded(cand_ids, expanded)
-                                 & active[:, None], cand_d, torch.inf)
-            prov_v, prov_slot = stable_smallest(prov_d, W)
-            prov_ids = torch.where(torch.isfinite(prov_v),
-                                   torch.gather(cand_ids, 1, prov_slot), -1)
-            _record(hints, prov_ids)
+    unexp, active = _frontier(cand_ids, expanded, iters)
+    go = _any(active)
+    while go:
+        with tracing.span("search.round"):
+            frontier_d = torch.where(unexp & active[:, None], cand_d,
+                                     torch.inf)
+            sel_d, sel_slot = stable_smallest(frontier_d, W)    # [nq, W]
+            sel_ids = torch.where(torch.isfinite(sel_d),
+                                  torch.gather(cand_ids, 1, sel_slot), -1)
+            if use_hash:
+                expanded = expanded.scatter(
+                    1, sel_slot, torch.gather(expanded, 1, sel_slot)
+                    | (sel_ids >= 0))
+            else:
+                expanded[rows[:, None], torch.where(sel_ids >= 0, sel_ids,
+                                                    n).long()] = True
+            fetched += (sel_ids >= 0).sum(1, dtype=torch.int32)
+            if p.trace_fetches:
+                _record(trace, sel_ids)
+            if p.trace_hints:
+                # Provisional frontier for round r+1, read BEFORE this
+                # round's neighbours merge: the top-W unexpanded survivors
+                # of the list.
+                prov_d = torch.where(_unexpanded(cand_ids, expanded)
+                                     & active[:, None], cand_d, torch.inf)
+                prov_v, prov_slot = stable_smallest(prov_d, W)
+                prov_ids = torch.where(
+                    torch.isfinite(prov_v),
+                    torch.gather(cand_ids, 1, prov_slot), -1)
+                _record(hints, prov_ids)
 
-        nbrs = _gather_neighbors(index, sel_ids, p, n)        # [nq, W*R]
-        # Dedupe within the round: sort + first occurrence.
-        sorted_n = torch.sort(nbrs, dim=1).values
-        first = torch.ones_like(sorted_n, dtype=torch.bool)
-        first[:, 1:] = sorted_n[:, 1:] != sorted_n[:, :-1]
-        uniq = torch.where(first, sorted_n, -1)
-        if use_hash:
-            slots = _hash_slots(uniq.clamp_min(0), p.visited_hash_bits)
-            seen = torch.gather(visited, 1, slots) == uniq
-            ok = (uniq >= 0) & ~seen
-            win = _last_write_wins(slots, ok, H)
-            visited.scatter_(1, torch.where(win, slots, H),
-                             torch.where(win, uniq, -1))
-        else:
-            seen = torch.gather(visited, 1, uniq.clamp(0, n - 1).long())
-            ok = (uniq >= 0) & ~seen
-            visited.scatter_(1, torch.where(ok, uniq, n).long(),
-                             torch.ones_like(ok))
-        new_ids = torch.where(ok, uniq, -1)
-        pq_ct += ok.sum(1, dtype=torch.int32)
+            nbrs = _gather_neighbors(index, sel_ids, p, n)        # [nq, W*R]
+            # Dedupe within the round: sort + first occurrence.
+            sorted_n = torch.sort(nbrs, dim=1).values
+            first = torch.ones_like(sorted_n, dtype=torch.bool)
+            first[:, 1:] = sorted_n[:, 1:] != sorted_n[:, :-1]
+            uniq = torch.where(first, sorted_n, -1)
+            if use_hash:
+                slots = _hash_slots(uniq.clamp_min(0), p.visited_hash_bits)
+                seen = torch.gather(visited, 1, slots) == uniq
+                ok = (uniq >= 0) & ~seen
+                win = _last_write_wins(slots, ok, H)
+                visited.scatter_(1, torch.where(win, slots, H),
+                                 torch.where(win, uniq, -1))
+            else:
+                seen = torch.gather(visited, 1, uniq.clamp(0, n - 1).long())
+                ok = (uniq >= 0) & ~seen
+                visited.scatter_(1, torch.where(ok, uniq, n).long(),
+                                 torch.ones_like(ok))
+            new_ids = torch.where(ok, uniq, -1)
+            pq_ct += ok.sum(1, dtype=torch.int32)
 
-        if p.kernels.beam_step != "off":
-            # the fused hop reads the code rows of new_ids itself
-            cand_ids, cand_d, top_i = dispatch.beam_step(
-                index.pq_codes, luts, cand_ids, cand_d, new_ids, p.kernels)
-            top_i = top_i.long()
-        else:
-            # the ADC reads the code rows of new_ids; +inf where masked
-            new_d = dispatch.pq_adc_batched(index.pq_codes, luts, p.kernels,
-                                            ids=new_ids)
-            merged_ids = torch.cat([cand_ids, new_ids], 1)
-            cand_d, top_i = stable_smallest(torch.cat([cand_d, new_d], 1), L)
-            cand_ids = torch.gather(merged_ids, 1, top_i)
-        if use_hash:
-            merged_exp = torch.cat([expanded, torch.zeros_like(ok)], 1)
-            expanded = torch.gather(merged_exp, 1, top_i)
+            if p.kernels.beam_step != "off":
+                # the fused hop reads the code rows of new_ids itself
+                cand_ids, cand_d, top_i = dispatch.beam_step(
+                    index.pq_codes, luts, cand_ids, cand_d, new_ids,
+                    p.kernels)
+                top_i = top_i.long()
+            else:
+                # the ADC reads the code rows of new_ids; +inf where masked
+                new_d = dispatch.pq_adc_batched(index.pq_codes, luts,
+                                                p.kernels, ids=new_ids)
+                merged_ids = torch.cat([cand_ids, new_ids], 1)
+                cand_d, top_i = stable_smallest(
+                    torch.cat([cand_d, new_d], 1), L)
+                cand_ids = torch.gather(merged_ids, 1, top_i)
+            if use_hash:
+                merged_exp = torch.cat([expanded, torch.zeros_like(ok)], 1)
+                expanded = torch.gather(merged_exp, 1, top_i)
 
-        # §3.4 stability: top-(K+B) id set unchanged across expansions.
-        top_now = torch.sort(cand_ids[:, :KB], dim=1).values
-        same = (top_now == prev_top).all(1)
-        stab = torch.where(active, torch.where(same, stab + W, 0), stab)
-        trigger = active & (stab >= p.rerank_batch) & (pf_iter < 0)
-        pf_iter = torch.where(trigger, iters + 1, pf_iter)
-        iters = iters + active.to(torch.int32)
-        prev_top = torch.where(active[:, None], top_now, prev_top)
+            # §3.4 stability: top-(K+B) id set unchanged across expansions.
+            top_now = torch.sort(cand_ids[:, :KB], dim=1).values
+            same = (top_now == prev_top).all(1)
+            stab = torch.where(active, torch.where(same, stab + W, 0),
+                               stab)
+            trigger = active & (stab >= p.rerank_batch) & (pf_iter < 0)
+            pf_iter = torch.where(trigger, iters + 1, pf_iter)
+            iters = iters + active.to(torch.int32)
+            prev_top = torch.where(active[:, None], top_now, prev_top)
+            unexp, active = _frontier(cand_ids, expanded, iters)
+            go = _any(active)
 
     return cand_ids, cand_d, (iters, fetched, pf_iter, pq_ct + 1, trace,
                               hints)
@@ -324,7 +344,7 @@ def rerank(index: DeviceIndex, queries: torch.Tensor, cand_ids: torch.Tensor,
     pending_stop = torch.zeros((nq,), dtype=torch.bool, device=dev)
     batches = torch.zeros((nq,), dtype=torch.int32, device=dev)
     b = 0
-    while b < max_batches and bool(go.any()):
+    while b < max_batches and _any(go):
         ids = cand_ids[:, K + b * B:K + (b + 1) * B]
         d = torch.where(go[:, None], exact(ids), torch.inf)
         m_ids = torch.cat([heap_ids, ids], 1)
@@ -362,13 +382,17 @@ def search_batched(index: DeviceIndex, queries, p: SearchParams,
                    device=None):
     """Batch-first search core: queries [nq, d] -> (ids [nq, K] int32,
     dists [nq, K] float32, SearchStats of [nq])."""
-    queries = _on_device(index, queries, device)
-    p = check_kernels(p)
-    luts = build_lut_torch(queries, index.pq_centroids)
-    cand_ids, cand_d, (iters, fetched, pf_iter, pq_ct, trace, hints) = \
-        traverse(index, luts, p)
-    ids, dists, (batches, exact_ct) = rerank(
-        index, queries.to(torch.float32), cand_ids, p)
+    with tracing.span("search.batch"):
+        queries = _on_device(index, queries, device)
+        p = check_kernels(p)
+        with tracing.span("search.lut"):
+            luts = build_lut_torch(queries, index.pq_centroids)
+        with tracing.span("search.traverse"):
+            cand_ids, cand_d, (iters, fetched, pf_iter, pq_ct, trace,
+                               hints) = traverse(index, luts, p)
+        with tracing.span("search.rerank"):
+            ids, dists, (batches, exact_ct) = rerank(
+                index, queries.to(torch.float32), cand_ids, p)
     stats = SearchStats(iters, fetched, pf_iter, batches, exact_ct,
                         pq_ct, trace, hints)
     return ids, dists, stats
@@ -394,8 +418,10 @@ def search_candidates(index: DeviceIndex, queries, p: SearchParams,
     path's candidate pool. Distances are PQ (ADC) approximations."""
     queries = _on_device(index, queries, device)
     p = check_kernels(p)
-    luts = build_lut_torch(queries, index.pq_centroids)
-    cand_ids, cand_d, _ = traverse(index, luts, p)
+    with tracing.span("search.lut"):
+        luts = build_lut_torch(queries, index.pq_centroids)
+    with tracing.span("search.traverse"):
+        cand_ids, cand_d, _ = traverse(index, luts, p)
     return cand_ids, cand_d
 
 

@@ -26,6 +26,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ... import tracing
 from ..codec import elias_fano as ef
 from ..codec import registry as codecs
 from ..search.beam import resolve_device
@@ -371,20 +372,22 @@ class CompressedIndexStore:
         neighbor ids ``[B, max count]`` int64 padded with -1, counts)."""
         if self.codec != "elias_fano":
             raise ValueError("decode_batch decodes Elias-Fano records only")
-        if not isinstance(ids, torch.Tensor):
-            ids = torch.from_numpy(np.ascontiguousarray(ids, dtype=np.int64))
-        pos = ids.to(device=self.data.device, dtype=torch.int64)
-        if self.order is not None:
-            pos = torch.from_numpy(self.order.perm).to(pos.device)[pos]
-        vals, cnt = ef.decode_records_torch(self.data, self.rec_start[pos],
-                                            self.rec_len[pos])
-        if self.order is not None:
-            inv = torch.from_numpy(self.order.inv).to(vals.device)
-            big = torch.iinfo(torch.int64).max
-            vals = torch.where(vals >= 0, inv[vals.clamp(min=0)], big)
-            vals = vals.sort(1).values
-            vals = torch.where(vals == big, -1, vals)
-        return vals, cnt
+        with tracing.span("istore.decode_batch"):
+            if not isinstance(ids, torch.Tensor):
+                ids = torch.from_numpy(np.ascontiguousarray(ids,
+                                                            dtype=np.int64))
+            pos = ids.to(device=self.data.device, dtype=torch.int64)
+            if self.order is not None:
+                pos = torch.from_numpy(self.order.perm).to(pos.device)[pos]
+            vals, cnt = ef.decode_records_torch(
+                self.data, self.rec_start[pos], self.rec_len[pos])
+            if self.order is not None:
+                inv = torch.from_numpy(self.order.inv).to(vals.device)
+                big = torch.iinfo(torch.int64).max
+                vals = torch.where(vals >= 0, inv[vals.clamp(min=0)], big)
+                vals = vals.sort(1).values
+                vals = torch.where(vals == big, -1, vals)
+            return vals, cnt
 
     def _demand_block(self, bid: int) -> bool:
         """Account one demand block fetch. Returns True when the block was

@@ -37,6 +37,7 @@ from dataclasses import dataclass, field, replace
 import numpy as np
 import torch
 
+from ... import tracing
 from ...kernels import dispatch
 from ..codec import huffman, xor_delta
 from ..search.beam import resolve_device
@@ -148,7 +149,9 @@ class SealedSegment:
         rows = torch.searchsorted(self.ids, ids)
         ok = (rows < m) & (self.ids[rows.clamp(max=max(m - 1, 0))] == ids) \
             if m else torch.zeros_like(ids, dtype=torch.bool)
-        if not bool(ok.all()):
+        with tracing.span("vstore.sync"):
+            held = bool(ok.all())
+        if not held:
             raise KeyError(f"ids not in segment: {ids[~ok][:5].tolist()}")
         return rows
 
@@ -164,13 +167,14 @@ class SealedSegment:
         pk = self.packed
         if io is not None:
             self.account_reads(rows, io)
-        if self.huff is None:
-            cols = torch.arange(self.v_bytes, device=rows.device)
-            return pk.data[pk.rec_start[rows][:, None] + cols]
-        base_of = self.chunk_base[rows // self.rows_per_chunk]
-        return dispatch.huffman_decode(pk.data, pk.rec_start[rows],
-                                       self.v_bytes, self.huff, self.bases,
-                                       base_of, kernels)
+        with tracing.span("vstore.decode"):
+            if self.huff is None:
+                cols = torch.arange(self.v_bytes, device=rows.device)
+                return pk.data[pk.rec_start[rows][:, None] + cols]
+            base_of = self.chunk_base[rows // self.rows_per_chunk]
+            return dispatch.huffman_decode(pk.data, pk.rec_start[rows],
+                                           self.v_bytes, self.huff,
+                                           self.bases, base_of, kernels)
 
     def decode_rows(self, rows, io: IOStats | None = None,
                     kernels=None) -> torch.Tensor:
@@ -367,7 +371,9 @@ class DecoupledVectorStore:
         raise ``KeyError`` for an id the store does not hold."""
         ids = self._ids(ids)
         found, pos = self._lookup(ids)
-        if not bool(found.all()):
+        with tracing.span("vstore.sync"):
+            held = bool(found.all())
+        if not held:
             raise KeyError(int(ids[~found][0]))
         return self._loc_seg[pos], self._loc_row[pos]
 
@@ -574,25 +580,32 @@ class DecoupledVectorStore:
         ``account=False`` skips read-I/O accounting — for bulk loads into
         a device-resident view (publish-time materialization is not
         serving I/O), never for the query path."""
-        ids = self._ids(ids)
-        seg, row = self.location(ids)
-        out = torch.empty((len(ids), self.cfg.v_bytes), dtype=torch.uint8,
-                          device=self.device)
-        for sid in torch.unique(seg).tolist():
-            sel = torch.nonzero(seg == sid).squeeze(1)
-            if sid == -1:
-                got = self.active.rows[row[sel]]
-            else:
-                s = self.sealed[sid]
-                got = s.decode_bytes(s.rows_of(ids[sel]),
-                                     io=self.io if account else None,
-                                     kernels=self.cfg.kernels)
-            lo = int(sel[0])
-            if int(sel[-1]) - lo + 1 == len(sel):    # one contiguous run
-                out[lo:lo + len(sel)] = got
-            else:
-                out[sel] = got
-        return out.view(self.dtype).reshape(len(ids), self.cfg.dim)
+        with tracing.span("vstore.get"):
+            ids = self._ids(ids)
+            seg, row = self.location(ids)
+            out = torch.empty((len(ids), self.cfg.v_bytes),
+                              dtype=torch.uint8, device=self.device)
+            with tracing.span("vstore.sync"):
+                sids = torch.unique(seg).tolist()
+            for sid in sids:
+                with tracing.span("vstore.sync"):
+                    sel = torch.nonzero(seg == sid).squeeze(1)
+                if sid == -1:
+                    got = self.active.rows[row[sel]]
+                else:
+                    s = self.sealed[sid]
+                    got = s.decode_bytes(s.rows_of(ids[sel]),
+                                         io=self.io if account else None,
+                                         kernels=self.cfg.kernels)
+                with tracing.span("vstore.sync"):
+                    lo = int(sel[0])
+                with tracing.span("vstore.sync"):
+                    hi = int(sel[-1])
+                if hi - lo + 1 == len(sel):    # one contiguous run
+                    out[lo:lo + len(sel)] = got
+                else:
+                    out[sel] = got
+            return out.view(self.dtype).reshape(len(ids), self.cfg.dim)
 
     def account_reads(self, ids) -> None:
         """Account the read I/O that ``get(ids)`` accounts (the distinct

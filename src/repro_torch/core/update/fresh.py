@@ -36,12 +36,12 @@ that already exists in the graph raises ``ValueError``.
 """
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from ... import tracing
 from ...kernels import dispatch
 from ..graph.pq import PQCodebook, encode_pq
 from ..graph.vamana import robust_prune
@@ -86,8 +86,9 @@ class UpdateConfig:
 
 @dataclass
 class MergeStats:
-    """One merge's accounting: phase wall-times, dirty set, block-granular
-    write I/O, and the engine-modeled cost."""
+    """One merge's accounting: dirty set, block-granular write I/O, and the
+    engine-modeled cost. The phases show as ``update.*`` spans
+    (``repro_torch.tracing``)."""
     dirty_vertices: int = 0
     inserted: int = 0
     deleted: int = 0
@@ -98,11 +99,6 @@ class MergeStats:
     cache_invalidated: int = 0
     full_rebuild: bool = False
     modeled_cost_us: float = 0.0      # engine.merge_cost_us pricing
-    t_repair_s: float = 0.0
-    t_insert_s: float = 0.0
-    t_vector_s: float = 0.0           # stale-marking + seal + GC
-    t_store_s: float = 0.0            # index-store rewrite/rebuild
-    t_publish_s: float = 0.0          # device-view build + publish
 
 
 class _Rows:
@@ -277,160 +273,158 @@ class StreamingIndex:
                 f"exist in the graph (dense-id contract)")
         rows = _Rows(self.vector_store, self.insert_buffer)
         dirty: set[int] = set()
-        t0 = time.perf_counter()
-        D = {d for d in self.delete_buffer if d < len(self.adjacency)}
-        stats.deleted = len(D)
-        # 1. Delete consolidation (FreshDiskANN): patch every vertex whose
-        #    list touches D with its deleted neighbors' neighbors. Every
-        #    candidate list depends on the pre-merge graph alone, so all
-        #    are formed first and the rows they prune with fetched at once.
-        if D:
-            dead = np.zeros(len(self.adjacency), bool)
-            dead[np.asarray(sorted(D), np.int64)] = True
-            patched = []
-            for p in self._touching(dead):
-                nbrs = self.adjacency[p]
-                hit = nbrs[dead[nbrs]]
-                pulled = np.concatenate([self.adjacency[d] for d in hit])
-                pulled = pulled[~dead[pulled] & (pulled != p)]
-                patched.append((p, np.union1d(nbrs[~dead[nbrs]], pulled)))
-            prune = [(p, cand) for p, cand in patched
-                     if len(cand) > self.cfg.r]
-            if prune:
-                need = np.unique(np.concatenate(
-                    [c for _, c in prune] + [np.asarray([p for p, _ in prune],
-                                                        np.int64)]))
-                # the reference reads each distinct row once, one block each
-                k = int(self._sealed(need).sum())
-                self.vector_store.io.read(k * BLOCK_SIZE, n=k)
-                rows.fetch(need)
-            for p, cand in patched:
-                if len(cand) > self.cfg.r:
-                    vmat = np.stack([rows.rows[int(c)] for c in cand]
-                                    + [rows.rows[p]])
-                    local = robust_prune(len(cand), np.arange(len(cand)),
-                                         vmat, self.cfg.alpha, self.cfg.r)
-                    cand = cand[local]
-                self.adjacency[p] = cand
-                dirty.add(p)
-            for d in D:
-                self.adjacency[d] = np.zeros(0, np.int64)
-            dirty.update(D)
-        stats.t_repair_s = time.perf_counter() - t0
+        with tracing.span("update.repair"):
+            D = {d for d in self.delete_buffer if d < len(self.adjacency)}
+            stats.deleted = len(D)
+            # 1. Delete consolidation (FreshDiskANN): patch every vertex whose
+            #    list touches D with its deleted neighbors' neighbors. Every
+            #    candidate list depends on the pre-merge graph alone, so all
+            #    are formed first and the rows they prune with fetched at once.
+            if D:
+                dead = np.zeros(len(self.adjacency), bool)
+                dead[np.asarray(sorted(D), np.int64)] = True
+                patched = []
+                for p in self._touching(dead):
+                    nbrs = self.adjacency[p]
+                    hit = nbrs[dead[nbrs]]
+                    pulled = np.concatenate([self.adjacency[d] for d in hit])
+                    pulled = pulled[~dead[pulled] & (pulled != p)]
+                    patched.append((p, np.union1d(nbrs[~dead[nbrs]], pulled)))
+                prune = [(p, cand) for p, cand in patched
+                         if len(cand) > self.cfg.r]
+                if prune:
+                    need = np.unique(np.concatenate(
+                        [c for _, c in prune]
+                        + [np.asarray([p for p, _ in prune], np.int64)]))
+                    # the reference reads each distinct row once, one block
+                    # each
+                    k = int(self._sealed(need).sum())
+                    self.vector_store.io.read(k * BLOCK_SIZE, n=k)
+                    rows.fetch(need)
+                for p, cand in patched:
+                    if len(cand) > self.cfg.r:
+                        vmat = np.stack([rows.rows[int(c)] for c in cand]
+                                        + [rows.rows[p]])
+                        local = robust_prune(len(cand), np.arange(len(cand)),
+                                             vmat, self.cfg.alpha, self.cfg.r)
+                        cand = cand[local]
+                    self.adjacency[p] = cand
+                    dirty.add(p)
+                for d in D:
+                    self.adjacency[d] = np.zeros(0, np.int64)
+                dirty.update(D)
 
         # 2. Insert buffered points: ONE batched device traversal over the
         #    pre-merge snapshot supplies every point's candidate pool, then
         #    robust prune + back-edge patching on the host.
-        t1 = time.perf_counter()
-        # A buffered insert that was deleted before the merge must NOT be
-        # integrated (it would resurrect: publish clears the tombstones);
-        # its vector row is reclaimed with the other deletes in step 3.
-        items = sorted((vid, v) for vid, v in self.insert_buffer.items()
-                       if vid not in self.delete_buffer)
-        stats.inserted = len(items)
-        if items:
-            top = items[-1][0]    # grow the PQ codes once for every insert
-            if top >= len(self.pq_codes):
-                grow = np.zeros((top + 1 - len(self.pq_codes),
-                                 self.pq_codes.shape[1]), np.uint8)
-                self.pq_codes = np.concatenate([self.pq_codes, grow])
-            qs = np.stack([v for _, v in items])
-            p_ins = self._params(k=min(10, self.cfg.l_build),
-                                 l_size=self.cfg.l_build,
-                                 universe=snap0.index_store.universe)
-            cand_rows, _ = search_candidates(snap0.device, qs, p_ins,
-                                             self.device)
-            cand_rows = cand_rows.cpu().numpy().astype(np.int64)
-        for (vid, v), row in zip(items, cand_rows if items else ()):
-            while len(self.adjacency) <= vid:
-                self.adjacency.append(np.zeros(0, np.int64))
-            cand_ids = np.asarray(
-                [c for c in row if c >= 0 and c not in self.delete_buffer],
-                np.int64)
-            vmat = np.concatenate([rows.vecs(cand_ids), v[None]]) \
-                if len(cand_ids) else v[None]
-            local = robust_prune(len(cand_ids), np.arange(len(cand_ids)),
-                                 vmat, self.cfg.alpha, self.cfg.r)
-            self.adjacency[vid] = cand_ids[local]
-            dirty.add(vid)
-            grow = [int(q) for q in self.adjacency[vid]
-                    if vid not in self.adjacency[int(q)]
-                    and len(self.adjacency[int(q)]) + 1 > self.cfg.r]
-            if grow:      # the rows the back-edge prunes read, in one get
-                rows.fetch(np.concatenate(
-                    [self.adjacency[q] for q in grow]
-                    + [np.asarray(grow + [vid], np.int64)]))
-            for q in self.adjacency[vid]:
-                q = int(q)
-                if vid not in self.adjacency[q]:
-                    merged = np.append(self.adjacency[q], vid)
-                    if len(merged) > self.cfg.r:
-                        qv = np.concatenate([rows.vecs(merged),
-                                             rows.vec(q)[None]])
-                        keep = robust_prune(len(merged), np.arange(len(merged)),
-                                            qv, self.cfg.alpha, self.cfg.r)
-                        merged = merged[keep]
-                    self.adjacency[q] = merged
-                    dirty.add(q)
-            # PQ code for steering future traversals.
-            self.pq_codes[vid] = encode_pq(v[None], self.cb)[0]
-        stats.t_insert_s = time.perf_counter() - t1
+        with tracing.span("update.insert"):
+            # A buffered insert that was deleted before the merge must NOT be
+            # integrated (it would resurrect: publish clears the tombstones);
+            # its vector row is reclaimed with the other deletes in step 3.
+            items = sorted((vid, v) for vid, v in self.insert_buffer.items()
+                           if vid not in self.delete_buffer)
+            stats.inserted = len(items)
+            if items:
+                top = items[-1][0]    # grow the PQ codes once for every insert
+                if top >= len(self.pq_codes):
+                    grow = np.zeros((top + 1 - len(self.pq_codes),
+                                     self.pq_codes.shape[1]), np.uint8)
+                    self.pq_codes = np.concatenate([self.pq_codes, grow])
+                qs = np.stack([v for _, v in items])
+                p_ins = self._params(k=min(10, self.cfg.l_build),
+                                     l_size=self.cfg.l_build,
+                                     universe=snap0.index_store.universe)
+                cand_rows, _ = search_candidates(snap0.device, qs, p_ins,
+                                                 self.device)
+                cand_rows = cand_rows.cpu().numpy().astype(np.int64)
+            for (vid, v), row in zip(items, cand_rows if items else ()):
+                while len(self.adjacency) <= vid:
+                    self.adjacency.append(np.zeros(0, np.int64))
+                cand_ids = np.asarray(
+                    [c for c in row if c >= 0 and c not in self.delete_buffer],
+                    np.int64)
+                vmat = np.concatenate([rows.vecs(cand_ids), v[None]]) \
+                    if len(cand_ids) else v[None]
+                local = robust_prune(len(cand_ids), np.arange(len(cand_ids)),
+                                     vmat, self.cfg.alpha, self.cfg.r)
+                self.adjacency[vid] = cand_ids[local]
+                dirty.add(vid)
+                grow = [int(q) for q in self.adjacency[vid]
+                        if vid not in self.adjacency[int(q)]
+                        and len(self.adjacency[int(q)]) + 1 > self.cfg.r]
+                if grow:      # the rows the back-edge prunes read, in one get
+                    rows.fetch(np.concatenate(
+                        [self.adjacency[q] for q in grow]
+                        + [np.asarray(grow + [vid], np.int64)]))
+                for q in self.adjacency[vid]:
+                    q = int(q)
+                    if vid not in self.adjacency[q]:
+                        merged = np.append(self.adjacency[q], vid)
+                        if len(merged) > self.cfg.r:
+                            qv = np.concatenate([rows.vecs(merged),
+                                                 rows.vec(q)[None]])
+                            keep = robust_prune(
+                                len(merged), np.arange(len(merged)), qv,
+                                self.cfg.alpha, self.cfg.r)
+                            merged = merged[keep]
+                        self.adjacency[q] = merged
+                        dirty.add(q)
+                # PQ code for steering future traversals.
+                self.pq_codes[vid] = encode_pq(v[None], self.cb)[0]
 
         # 3. Vector-data path: tombstones -> stale marks, then GC (§3.5).
         #    The whole delete buffer is marked (not just D): a deleted
         #    buffered insert has a vector row but no graph slot, and ids
         #    that never existed are skipped by mark_stale.
-        t2 = time.perf_counter()
-        self.vector_store.mark_stale(
-            np.asarray(sorted(self.delete_buffer), np.int64))
-        self.vector_store.seal_active()
-        self.vector_store.gc(self.cfg.gc_threshold)
-        stats.t_vector_s = time.perf_counter() - t2
+        with tracing.span("update.vector"):
+            self.vector_store.mark_stale(
+                np.asarray(sorted(self.delete_buffer), np.int64))
+            self.vector_store.seal_active()
+            self.vector_store.gc(self.cfg.gc_threshold)
 
         # 4. Index-store merge: rewrite only dirty blocks; full rebuild is
         #    the fallback (and the forced baseline for write-amp studies).
-        t3 = time.perf_counter()
-        if self.medoid in D:
-            alive = [i for i, a in enumerate(self.adjacency)
-                     if len(a) and i not in D]
-            self.medoid = alive[0] if alive else 0
-        stats.dirty_vertices = len(dirty)
-        old_store = snap0.index_store
-        store = None
-        if self.cfg.incremental and not force_full:
-            res = old_store.rewrite_blocks(self.adjacency, dirty,
-                                           medoid=self.medoid)
-            if res is not None:
-                store, rep = res
-                stats.blocks_rewritten = rep.blocks_rewritten
-                stats.blocks_appended = rep.blocks_appended
-                stats.total_blocks = rep.total_blocks
-                stats.write_bytes = rep.write_bytes
-                stats.cache_invalidated = rep.cache_invalidated
-        if store is None:                     # full rebuild (or forced)
-            store = self._build_index_store()
-            store.io.write(store.physical_bytes, n=store.n_blocks)
-            stats.full_rebuild = True
-            stats.blocks_rewritten = store.n_blocks
-            stats.total_blocks = store.n_blocks
-            stats.write_bytes = store.physical_bytes
-        stats.modeled_cost_us = merge_cost_us(
-            stats.blocks_rewritten + stats.blocks_appended,
-            len(self.adjacency) if stats.full_rebuild else len(dirty),
-            backend=op_backend(self._kernels, "ef_decode", self.device))
-        stats.t_store_s = time.perf_counter() - t3
+        with tracing.span("update.store"):
+            if self.medoid in D:
+                alive = [i for i, a in enumerate(self.adjacency)
+                         if len(a) and i not in D]
+                self.medoid = alive[0] if alive else 0
+            stats.dirty_vertices = len(dirty)
+            old_store = snap0.index_store
+            store = None
+            if self.cfg.incremental and not force_full:
+                res = old_store.rewrite_blocks(self.adjacency, dirty,
+                                               medoid=self.medoid)
+                if res is not None:
+                    store, rep = res
+                    stats.blocks_rewritten = rep.blocks_rewritten
+                    stats.blocks_appended = rep.blocks_appended
+                    stats.total_blocks = rep.total_blocks
+                    stats.write_bytes = rep.write_bytes
+                    stats.cache_invalidated = rep.cache_invalidated
+            if store is None:                     # full rebuild (or forced)
+                store = self._build_index_store()
+                store.io.write(store.physical_bytes, n=store.n_blocks)
+                stats.full_rebuild = True
+                stats.blocks_rewritten = store.n_blocks
+                stats.total_blocks = store.n_blocks
+                stats.write_bytes = store.physical_bytes
+            stats.modeled_cost_us = merge_cost_us(
+                stats.blocks_rewritten + stats.blocks_appended,
+                len(self.adjacency) if stats.full_rebuild else len(dirty),
+                backend=op_backend(self._kernels, "ef_decode", self.device))
 
         # 5. Publish: device view patched from the previous snapshot's view
         #    where the store merge was incremental (same EF universe).
-        t4 = time.perf_counter()
-        prev_view = snap0.device \
-            if store.universe == old_store.universe else None
-        view = self._device_view(store.universe, prev=prev_view, dirty=dirty)
-        self.handle.publish(Snapshot(
-            version=snap0.version + 1, index_store=store,
-            vector_store=self.vector_store, pq_codes=self.pq_codes,
-            tombstones=frozenset(), mem_rows={}, device=view))
-        stats.t_publish_s = time.perf_counter() - t4
+        with tracing.span("update.publish"):
+            prev_view = snap0.device \
+                if store.universe == old_store.universe else None
+            view = self._device_view(store.universe, prev=prev_view,
+                                     dirty=dirty)
+            self.handle.publish(Snapshot(
+                version=snap0.version + 1, index_store=store,
+                vector_store=self.vector_store, pq_codes=self.pq_codes,
+                tombstones=frozenset(), mem_rows={}, device=view))
         self.insert_buffer.clear()
         self.delete_buffer.clear()
         self.merges += 1

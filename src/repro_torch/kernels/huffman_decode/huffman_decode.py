@@ -18,6 +18,7 @@ Both are exact, so they agree bit for bit.
 import numpy as np
 import torch
 
+from ... import tracing
 from ...core.codec.huffman import MAX_LEN, PlaneTables, decode_at_torch
 from ..build import check_cuda, launch
 
@@ -99,9 +100,13 @@ def huffman_decode_cuda(payload: torch.Tensor, starts: torch.Tensor, v: int,
         return out
     if not payload.numel():
         raise ValueError("huffman_decode: records in an empty payload")
-    if bool((base_of >= bases.shape[0]).any()):
+    with tracing.span("vstore.sync"):
+        past = bool((base_of >= bases.shape[0]).any())
+    if past:
         raise ValueError("huffman_decode: base_of names a base past bases")
-    words = torch.from_numpy(decoder_words(table)).to(dev)
+    words = torch.from_numpy(decoder_words(table))
+    with tracing.span("vstore.sync"):      # a pageable copy drains the stream
+        words = words.to(dev)
     launch("huffman_decode", "huffman_decode", payload, payload.numel(),
            starts, m, v, words, words.shape[0], bases, base_of, out)
     return out

@@ -44,6 +44,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from .. import tracing
 from ..core.codec import elias_fano as ef
 from ..core.distributed.sharded_index import (ShardedIndex, ShardRouter,
                                               route_mask)
@@ -134,14 +135,10 @@ class BatchReport:
     fanout_frac: float = 1.0        # routed_rows / (nq * n_shards)
     failed_shards: list = field(default_factory=list)  # shards skipped by
                                     # the graceful-degradation arm
-    shard_busy_us: list = field(default_factory=list)  # per-shard summed
-                                    # modeled latency — the scaling bench's
-                                    # critical-path raw material
     prefetch_queues: dict = field(default_factory=dict)  # component ->
                                     # blockstore PrefetchQueue counters
     # Component-aware storage engine metrics (BlockStore partitions):
     component_io: dict = field(default_factory=dict)     # shard -> IOStats
-    component_cache: dict = field(default_factory=dict)  # shard -> hit/miss
     storage_bytes: dict = field(default_factory=dict)    # live mode: bytes
                                     # per component of the pinned snapshot
     # Admission-tier fields (serve/admission.py fills the queue ones after
@@ -333,6 +330,7 @@ class BatchedSearcher:
         # re-register with the same quotas.
         self._tenant_caches: dict = {}
         self._tenant_floors: dict = {}
+        self._seq = 0                  # served batches, for the spans
 
     # ------------------------------------------------------------ tenants
     def register_tenant(self, tenant: str, floor_bytes: int = 0) -> None:
@@ -402,6 +400,12 @@ class BatchedSearcher:
         query only searches (and is only charged I/O for) its routed
         shards.
         """
+        self._seq += 1
+        with tracing.span("serve.batch",
+                          {"batch": self._seq, "rows": len(queries)}):
+            return self._search(queries, tenants, failed_shards)
+
+    def _search(self, queries, tenants, failed_shards):
         queries = np.asarray(queries, np.float32)
         nq = len(queries)
         if tenants is not None and len(tenants) != nq:
@@ -440,8 +444,10 @@ class BatchedSearcher:
         failed = {int(s) for s in (failed_shards or ())}
         route = None
         if self._router is not None and self.cfg.route_frac < 1.0:
-            route = route_mask(self._router.centroids, queries,
-                               self.cfg.route_frac).cpu().numpy()
+            mask = route_mask(self._router.centroids, queries,
+                              self.cfg.route_frac)
+            with tracing.span("serve.sync"):
+                route = mask.cpu().numpy()
         mem_lanes = 1 if snap is not None else \
             (len(shards) if snaps is not None else 0)
         n_lanes = len(shards) + mem_lanes
@@ -464,84 +470,91 @@ class BatchedSearcher:
         out_d = np.full((n_lanes, nq, self.p.k), np.inf, np.float32)
         lat = np.zeros((n_lanes, nq), np.float64)
         for start, count, bucket in chunks:
-            report.buckets.append(bucket)
-            report.n_padded += bucket - count
-            q = queries[start:start + count]
-            if bucket > count:      # pad by repeating the last query
-                q = np.concatenate([q, np.repeat(q[-1:], bucket - count, 0)])
-            qj = torch.from_numpy(q).to(self.device)   # one copy a bucket
-            for si, shard in enumerate(shards):
-                if si in failed:
-                    continue        # unresponsive: merge the rest
-                active = None
-                if route is not None:
-                    active = route[start:start + count, si]
-                    if not active.any():
-                        continue    # no query routed here: zero I/O
-                ids, dists, stats = search(shard, qj, self.p, self.device)
-                ids = ids[:count].cpu().numpy()
-                d = dists[:count].cpu().numpy()
-                if self._row_ids is not None:
-                    # Frozen sharded: global ids through the shard's
-                    # row_ids map; pad rows (row_id -1) are masked to
-                    # (-1, +inf) so they never surface in the merge.
-                    rm = self._row_ids[si]
-                    gids = np.where(ids >= 0,
-                                    rm[np.clip(ids, 0, len(rm) - 1)], -1)
-                    d = np.where(gids >= 0, d, np.inf).astype(np.float32)
-                else:
-                    off = offsets[si] if offsets is not None \
-                        else si * self.shard_size
-                    gids = np.where(ids >= 0, ids.astype(np.int64) + off, -1)
-                if active is not None:
-                    gids = np.where(active[:, None], gids, -1)
-                    d = np.where(active[:, None], d,
-                                 np.inf).astype(np.float32)
-                out_ids[si, start:start + count] = gids
-                out_d[si, start:start + count] = d
-                if self.cfg.account_io:
-                    key_map = None
-                    if tenants is not None:
-                        rows = tenants[start:start + count]
-                        caches = [self._tenant_cache(t) for t in rows]
-                        comps = [f"tenant:{t}" for t in rows]
-                        if self._key_maps is not None:
-                            off, key_map = 0, self._key_maps[si]
-                        else:
-                            off = offsets[si] if offsets is not None \
-                                else si * self.shard_size
+            with tracing.span("serve.bucket",
+                              {"bucket": bucket, "rows": count}):
+                report.buckets.append(bucket)
+                report.n_padded += bucket - count
+                q = queries[start:start + count]
+                if bucket > count:      # pad by repeating the last query
+                    q = np.concatenate(
+                        [q, np.repeat(q[-1:], bucket - count, 0)])
+                with tracing.span("serve.sync"):   # one copy a bucket
+                    qj = torch.from_numpy(q).to(self.device)
+                for si, shard in enumerate(shards):
+                    if si in failed:
+                        continue        # unresponsive: merge the rest
+                    active = None
+                    if route is not None:
+                        active = route[start:start + count, si]
+                        if not active.any():
+                            continue    # no query routed here: zero I/O
+                    ids, dists, stats = search(shard, qj, self.p, self.device)
+                    with tracing.span("serve.sync"):
+                        ids = ids[:count].cpu().numpy()
+                    with tracing.span("serve.sync"):
+                        d = dists[:count].cpu().numpy()
+                    if self._row_ids is not None:
+                        # Frozen sharded: global ids through the shard's
+                        # row_ids map; pad rows (row_id -1) are masked to
+                        # (-1, +inf) so they never surface in the merge.
+                        rm = self._row_ids[si]
+                        gids = np.where(ids >= 0,
+                                        rm[np.clip(ids, 0, len(rm) - 1)], -1)
+                        d = np.where(gids >= 0, d, np.inf).astype(np.float32)
                     else:
-                        caches = [self._caches[si]] * count
-                        comps = [f"shard{si}"] * count
-                        off = 0
-                    lat[si, start:start + count] = self._account(
-                        report, stats, count, caches, comps, key_offset=off,
-                        key_map=key_map, active=active)
-        if snap is not None:
-            # Memtable side-scan: buffered inserts are one more "shard" in
-            # the global merge (ids are globally unique fresh dense ids).
-            out_ids[-1], out_d[-1] = memtable_topk(
-                snap, queries, self.p.k, self.p.kernels, self.device)
-            report.mem_candidates = len(snap.mem_rows)
-        elif snaps is not None:
-            # One memtable lane per shard, local fresh ids translated by
-            # the handle's per-shard offset.
-            for si, s in enumerate(snaps):
-                if si in failed:
-                    continue
-                mids, md = memtable_topk(s, queries, self.p.k,
-                                         self.p.kernels, self.device)
-                out_ids[len(shards) + si] = np.where(
-                    mids >= 0, mids + offsets[si], -1)
-                out_d[len(shards) + si] = md
-                report.mem_candidates += len(s.mem_rows)
-        ids, dists = merge_topk(out_ids, out_d, self.p.k)
+                        off = offsets[si] if offsets is not None \
+                            else si * self.shard_size
+                        gids = np.where(ids >= 0,
+                                        ids.astype(np.int64) + off, -1)
+                    if active is not None:
+                        gids = np.where(active[:, None], gids, -1)
+                        d = np.where(active[:, None], d,
+                                     np.inf).astype(np.float32)
+                    out_ids[si, start:start + count] = gids
+                    out_d[si, start:start + count] = d
+                    if self.cfg.account_io:
+                        key_map = None
+                        if tenants is not None:
+                            rows = tenants[start:start + count]
+                            caches = [self._tenant_cache(t) for t in rows]
+                            comps = [f"tenant:{t}" for t in rows]
+                            if self._key_maps is not None:
+                                off, key_map = 0, self._key_maps[si]
+                            else:
+                                off = offsets[si] if offsets is not None \
+                                    else si * self.shard_size
+                        else:
+                            caches = [self._caches[si]] * count
+                            comps = [f"shard{si}"] * count
+                            off = 0
+                        with tracing.span("serve.replay"):
+                            lat[si, start:start + count] = self._account(
+                                report, stats, count, caches, comps,
+                                key_offset=off, key_map=key_map, active=active)
+        with tracing.span("serve.merge"):
+            if snap is not None:
+                # Memtable side-scan: buffered inserts are one more "shard" in
+                # the global merge (ids are globally unique fresh dense ids).
+                out_ids[-1], out_d[-1] = memtable_topk(
+                    snap, queries, self.p.k, self.p.kernels, self.device)
+                report.mem_candidates = len(snap.mem_rows)
+            elif snaps is not None:
+                # One memtable lane per shard, local fresh ids translated by
+                # the handle's per-shard offset.
+                for si, s in enumerate(snaps):
+                    if si in failed:
+                        continue
+                    mids, md = memtable_topk(s, queries, self.p.k,
+                                             self.p.kernels, self.device)
+                    out_ids[len(shards) + si] = np.where(
+                        mids >= 0, mids + offsets[si], -1)
+                    out_d[len(shards) + si] = md
+                    report.mem_candidates += len(s.mem_rows)
+            ids, dists = merge_topk(out_ids, out_d, self.p.k)
         report.wall_s = time.perf_counter() - t0
         report.qps = nq / max(report.wall_s, 1e-9)
         if self.cfg.account_io:
             per_q = lat.max(axis=0)     # shards fan out in parallel
-            report.shard_busy_us = [float(lat[si].sum())
-                                    for si in range(len(shards))]
             report.modeled_latency_us = float(per_q.mean())
             report.modeled_p99_us = float(np.percentile(per_q, 99))
             report.per_query_latency_us = [float(v) for v in per_q]
@@ -550,7 +563,6 @@ class BatchedSearcher:
             # live snapshot's stores share an engine are reported there).
             report.component_io = {n: s.snapshot() for n, s in
                                    self.blocks.components.items()}
-            report.component_cache = self.blocks.cache_stats()["partitions"]
             if self.cfg.prefetch_depth > 0:
                 report.prefetch_queues = self.blocks.prefetch_stats()
         if snap is not None:
@@ -587,12 +599,13 @@ class BatchedSearcher:
         non-routed shard does no I/O. Returns per-query modeled latency
         [count] in µs."""
         # Only what the replay reads comes back to the host, as lists.
-        trace = stats.fetch_trace[:count].tolist()          # [c, iters, W]
-        pq_ops = stats.pq_dists[:count].tolist()
-        exact = stats.exact_dists[:count].tolist()
-        batches = stats.rerank_batches[:count].tolist()
         pf_on = self.cfg.prefetch_depth > 0
-        hints = stats.hint_trace[:count].tolist() if pf_on else None
+        with tracing.span("serve.sync"):
+            trace = stats.fetch_trace[:count].tolist()      # [c, iters, W]
+            pq_ops = stats.pq_dists[:count].tolist()
+            exact = stats.exact_dists[:count].tolist()
+            batches = stats.rerank_batches[:count].tolist()
+            hints = stats.hint_trace[:count].tolist() if pf_on else None
         if key_map is not None:
             key_map = key_map.tolist()
         lat = np.zeros(count)
