@@ -27,7 +27,14 @@ Phases (any fault exits non-zero; there is no CPU fallback):
    Huffman load (huffman_decode) over one table and plane tables at
    V in {16, 25, 100, 128, 512}, 1-bit and 16-bit codes, unsorted rows with
    and without bases, an odd payload address, records past 2 GiB, and one
-   full 512 MiB segment of each store. Every comparison is bit-exact.
+   full 512 MiB segment of each store; and the index store's record decode
+   (ef_record_decode) on records at the format's limits (counts 0, 1 and
+   255, low widths 0 and 32, universes up to 2^32, a record longer than
+   the kernel stages (count -1); every start alignment, positions out of
+   order and past either end (count -1), the last record on the image's
+   last byte, an odd image address, records past 2 GiB) and on the
+   shard's first 4,194,304 lists (one sift1b-shard segment of rows).
+   Every comparison is bit-exact.
 3. small world — the test suite's world (n=1200, dim=32, r=24, pq_m=8,
    32 queries) built by the port, searched on the card and on the CPU:
    identical ids, distances and SearchStats; with the dense visited set,
@@ -83,7 +90,8 @@ Phases (any fault exits non-zero; there is no CPU fallback):
 4b. storage — the §3.3 path on the same shard: its vectors sealed into the
    decoupled vector store ("auto": the sampled-entropy XOR-delta test per
    chunk, one Huffman table per segment), its graph sealed into the
-   Elias-Fano block index store (every record decoded back and compared),
+   Elias-Fano block index store (every record decoded back and compared,
+   one ef_record_decode launch a decode_batch call),
    the bytes of the co-located baseline, of the raw decoupled stores and
    of the compressed ones, every vector loaded back (bit-exact) and
    searched again (ids and distances equal phase 4's), an exhaustive PQ
@@ -118,6 +126,10 @@ Phases (any fault exits non-zero; there is no CPU fallback):
    chunk) on the segment huffman_decode is timed on, the single-LUT
    kernel on all-equal codes of the shard's scan (its LUT reads
    conflict-free) beside the time of reading the same 1 GB of codes once,
+   ef_record_decode on one segment of rows of each restore cell's store
+   (4,194,304 and 1,398,101 records: the kernel, its plain version, the
+   bound, and the op's wall with its one read-back; its own cases and
+   yardstick add ~4 s to the run, printed in the last line),
    then the autotune of the fused hop against the unfused one at the hop
    shapes of phases 4, 4c and 4d, written under the card's key to
    build/autotune_cache.json and resolved from there (a search under the
@@ -197,6 +209,9 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 SHARD_N = 31_250_000            # 1B vectors over 32 data shards
+#: Rows of one 512 MiB segment of each benchmark configuration's store.
+RESTORE_ROWS = {"sift1b-shard": (512 << 20) // 128,
+                "deep1b-shard": (512 << 20) // (96 * 4)}
 LIVE_N = 1 << 24                # phase 4d's live index (see --live-n)
 GOLDEN_RECALL_AT_10 = 0.971875  # the reference suite's pinned small world
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
@@ -212,6 +227,8 @@ REPLACES = {
     "pq_adc": "src/repro/kernels/pq_adc/pq_adc.py:53",
     # host numpy decode_at, then _undelta's byteplane_decode_pallas
     "huffman_decode": "src/repro/core/codec/huffman.py:205",
+    # host numpy decode_record, one record at a time
+    "ef_record_decode": "src/repro/core/codec/elias_fano.py:151",
 }
 # On no path: absorbed into huffman_decode, which XORs the bases back.
 OFF_PATH = ("byteplane",)
@@ -313,7 +330,8 @@ def main() -> int:
     kernels = report(parity, launches, times)              # 5. report
 
     log(f"chip_smoke: whole run {time.time() - t0:.1f} s, of which phase 4e "
-        f"{added['4e']:.1f} s, 4f {added['4f']:.1f} s, the autotune "
+        f"{added['4e']:.1f} s, 4f {added['4f']:.1f} s, ef_record_decode's "
+        f"own cases and yardstick {parity.records_s:.1f} s, the autotune "
         f"{added['autotune']:.1f} s, 6 (lm) {added['6']:.1f} s, 7 (train) "
         f"{added['7']:.1f} s, 8 (mesh) {added['8']:.1f} s")
     log(smi)
@@ -391,6 +409,8 @@ class Parity:
         from repro_torch.kernels.beam_step import beam_step as bs
         from repro_torch.kernels.byteplane import byteplane as bp
         from repro_torch.kernels.ef_decode import ef_decode as ef
+        from repro_torch.kernels.ef_record_decode import ef_record_decode \
+            as erd
         from repro_torch.kernels.huffman_decode import huffman_decode as hd
         from repro_torch.kernels.pq_adc import pq_adc as pa
         from repro_torch.kernels.pq_encode import pq_encode as pe
@@ -410,7 +430,10 @@ class Parity:
             "pq_adc": (pa.pq_adc_cuda, pa.pq_adc_ref),
             "huffman_decode": (hd.huffman_decode_cuda,
                                hd.huffman_decode_ref),
+            "ef_record_decode": (erd.ef_record_decode_cuda,
+                                 erd.ef_record_decode_ref),
         }
+        self.records_s = 0.0     # seconds of ef_record_decode's own cases
         self.err = dict.fromkeys(self.ops, 0.0)
         self.cases = dict.fromkeys(self.ops, 0)
 
@@ -697,6 +720,7 @@ class Parity:
                    ("skewed", 25, 1)]):
             self.huffman_cases(f"{dist} V={v} P={planes}", dist, v, planes)
         self.huffman_far()
+        self.record_cases()
         log(f"parity small: {dict(self.cases)} cases bit-exact "
             f"({time.time() - t0:.1f} s)")
 
@@ -821,6 +845,117 @@ class Parity:
         check(bits_equal(torch, got, want),
               "huffman_decode past 2 GiB: rows not recovered")
 
+    def record_cases(self):
+        """ef_record_decode on records at the format's limits (counts 0, 1
+        and 255, widths 0 and 32, universes up to 2^32, a record longer
+        than the kernel stages), each start alignment, positions out of
+        order, repeated and past either end, the last record ending on the
+        image's last byte, an odd image address, and records past 2 GiB;
+        every row also against a host ``decode_record`` (count -1 and a
+        row of -1 past the table or the stage)."""
+        from repro_torch.core.codec import elias_fano as ef
+        from repro_torch.kernels.ef_record_decode.ef_record_decode import \
+            MAX_RECORD_BYTES
+        torch, t0 = self.torch, time.time()
+        rng = np.random.default_rng(self.seed + 25)
+
+        def forced(values, universe, lw):
+            n, last = len(values), int(values[-1])
+            e = ef.encode(values, universe, low_width=lw)
+            return np.concatenate([
+                np.asarray([n, lw], np.uint8),
+                e.low_words.view(np.uint8)[:(n * lw + 7) // 8],
+                e.high_words.view(np.uint8)[:(n + (last >> lw) + 7) // 8]])
+
+        def drawn(n, universe):
+            return np.sort(rng.choice(universe, n, replace=False)).astype(
+                np.uint64)
+        recs = [ef.encode_record(np.zeros(0, np.uint64), 1000),
+                ef.encode_record(np.asarray([5], np.uint64), 1000),
+                ef.encode_record(np.sort(rng.integers(0, 10**6, 255)).astype(
+                    np.uint64), 10**6),
+                ef.encode_record(np.arange(40, dtype=np.uint64), 1000),
+                forced(drawn(255, 12_000), 12_000, 0),
+                forced(np.asarray([2**32 - 1], np.uint64), 2**32, 32),
+                forced(drawn(128, 2**32), 2**32, 32),
+                ef.encode_record(drawn(255, 2**32), 2**32)]
+        recs += [ef.encode_record(drawn(int(k), 31_250_000), 31_250_000)
+                 for k in rng.integers(0, 129, 500)]
+        for gap in (1, 2, 3, 4, 7):
+            pads = [rng.integers(0, 256, int(rng.integers(0, gap)),
+                                 dtype=np.uint8) for _ in recs]
+            lens = np.asarray([len(r) for r in recs], np.int64)
+            starts = np.cumsum([len(p) for p in pads]) + np.concatenate(
+                [[0], np.cumsum(lens)[:-1]])
+            img = np.concatenate([x for pr in zip(pads, recs) for x in pr])
+            buf = torch.from_numpy(img).to(self.dev)
+            st = torch.from_numpy(starts.astype(np.int64)).to(self.dev)
+            ln = torch.from_numpy(lens.astype(np.int32)).to(self.dev)
+            m = len(recs)
+            pos = torch.cat([torch.randperm(m, generator=self.g,
+                                            device=self.dev),
+                             torch.tensor([0, m - 1, m - 1, -4, m + 17],
+                                          device=self.dev)])
+            vals, cnt = self.compare("ef_record_decode", f"edges gap<{gap}",
+                                     buf, st, ln, pos)
+            self.compare("ef_record_decode", f"edges gap<{gap} in order",
+                         buf, st, ln, torch.arange(m, device=self.dev))
+            host_vals, host_cnt = vals.cpu().numpy(), cnt.cpu().numpy()
+            for i, p in enumerate(pos.tolist()):
+                got = host_vals[i]
+                if not 0 <= p < m or len(recs[p]) > MAX_RECORD_BYTES:
+                    check(host_cnt[i] == -1 and (got == -1).all(),
+                          f"ef_record_decode: row {i} (position {p}) "
+                          f"decoded")
+                    continue
+                want = ef.decode_record(recs[p], 2**32).astype(np.int64)
+                check(host_cnt[i] == len(want)
+                      and np.array_equal(got[:len(want)], want)
+                      and (got[len(want):] == -1).all(),
+                      f"ef_record_decode: record {p} not recovered")
+        odd = torch.empty(buf.numel() + 1, dtype=torch.uint8, device=self.dev)
+        odd[1:] = buf
+        got = self.compare("ef_record_decode", "odd image address",
+                           odd[1:], st, ln, pos)
+        check(all(bits_equal(torch, g, w) for g, w in zip(got, (vals, cnt))),
+              "ef_record_decode: an odd image address changes the rows")
+        self.compare("ef_record_decode", "no rows", buf, st, ln, pos[:0])
+        far = (1 << 31) + 5
+        big = torch.zeros(far + buf.numel(), dtype=torch.uint8,
+                          device=self.dev)
+        big[far:] = buf
+        got = self.compare("ef_record_decode", "records past 2 GiB", big,
+                           st + far, ln, pos)
+        check(all(bits_equal(torch, g, w) for g, w in zip(got, (vals, cnt))),
+              "ef_record_decode past 2 GiB: rows not recovered")
+        del big
+        self.records_s += time.time() - t0
+
+    def record_segment(self, shard):
+        """The index store's records of the shard's first 4,194,304 lists
+        (one sift1b-shard segment of rows; deep1b-shard's segment is its
+        first 1,398,101), encoded as the store encodes them, for the
+        shard's comparison (with the width given: the kernel's device work
+        without its read-back) and the report's times."""
+        from repro_torch.core.codec import elias_fano as ef
+        torch, t0 = self.torch, time.time()
+        rows = min(shard.n, RESTORE_ROWS["sift1b-shard"])
+        parts, lens = [], []
+        for a in range(0, rows, shard.CHUNK):
+            b = min(a + shard.CHUNK, rows)
+            v, cnt = ef.sort_lists_torch(shard.adjacency(a, b))
+            payload, offsets = ef.encode_records_torch(v, cnt, shard.n)
+            parts.append(payload)
+            lens.append(offsets[1:] - offsets[:-1])
+        buf = torch.cat(parts)
+        ln = torch.cat(lens)
+        st = torch.zeros_like(ln)
+        torch.cumsum(ln[:-1], 0, out=st[1:])
+        self.records = (buf, st, ln.to(torch.int32))
+        self.shard_in["ef_record_decode"] = (
+            *self.records, torch.arange(rows, device=self.dev), shard.R)
+        self.records_s += time.time() - t0
+
     def segment(self, vecs):
         """``vecs`` sealed into one full 512 MiB segment of the
         deployment's vector store ("auto") -> (the segment, the arguments
@@ -932,6 +1067,7 @@ class Parity:
         self.compare("byteplane", "shard SIFT chunk", *self.delta_chunk(
             shard.index.vectors[:32768]))
         self.run_segments(shard)
+        self.record_segment(shard)
         # the entry by id, the hop's edge cases, and both ops without ids
         # on the rows they read
         self.compare("pq_adc_batched", "shard entry by id", pq_codes, luts,
@@ -955,6 +1091,12 @@ class Parity:
                 check(bool(torch.equal(out[0],
                                        shard.index.pq_codes[:1 << 18])),
                       "pq_encode: codes differ from the shard's")
+            if op == "ef_record_decode":
+                rows = min(shard.CHUNK, n)
+                check(bool((out[1] == R).all()) and bool(torch.equal(
+                    out[0][:rows], shard.adjacency(0, rows))),
+                    "ef_record_decode: the segment's lists not recovered")
+            del out
         self.beam_cases("shard", nq, W * R, L, shard.M, table=pq_codes)
         self.compare("beam_step", "shard steady state",
                      *self.beam_regimes["steady state"][0])
@@ -1350,19 +1492,26 @@ class Storage:
                                              device=dev)
         t_ix = sync_time(torch, t0)
         t0 = sync_time(torch)
+        batches = 0
         for a in range(0, n, shard.CHUNK):
             b = min(a + shard.CHUNK, n)
             vals, cnt = ix.decode_batch(torch.arange(a, b, device=dev))
+            batches += 1
             check(bool((cnt == R).all()) and bool(torch.equal(
                 vals, shard.adjacency(a, b))),
                 f"index store records {a}..{b} do not decode to their lists")
         t_dec = sync_time(torch, t0)
+        check(build.LAUNCHES["ef_record_decode"] == batches,
+              f"ef_record_decode launched {build.LAUNCHES['ef_record_decode']}"
+              f" times for {batches} decode_batch calls")
         rec_mean = float(ix.rec_len.double().mean())
         log(f"storage: index store sealed: {n} EF records (mean "
             f"{rec_mean:.2f} B) in {ix.n_blocks} blocks ({n / ix.n_blocks:.2f}"
             f" a block), {ix.physical_bytes} B + sparse index "
             f"{ix.sparse_index_bytes} B; seal {t_ix:.2f} s; every record "
-            f"decoded back equal to its list in {t_dec:.2f} s")
+            f"decoded back equal to its list in {t_dec:.2f} s, "
+            f"{batches} decode_batch calls of one ef_record_decode launch "
+            f"each")
         # 3. space: co-located baseline, raw decoupled, compressed decoupled
         colo = ColocatedStore.build(vectors, adj, medoid, R)
         raw_ix = RawIndexStore.from_graph(adj, medoid, R).physical_bytes
@@ -1406,8 +1555,8 @@ class Storage:
               f"for {len(vs.sealed)} segments")
         check(launches["byteplane"] == 0, "byteplane launched on the load")
         shard.index = None           # the shard's tensors go before prop-like
-        return {name: launches[name]
-                for name in ("pq_adc", "huffman_decode", "byteplane")}
+        return {name: launches[name] for name in (
+            "pq_adc", "huffman_decode", "byteplane", "ef_record_decode")}
 
     def pq_scan(self, index, ids, nq=8, depth=100) -> float:
         """Exhaustive PQ scan of ``nq`` queries through the single-LUT
@@ -3506,6 +3655,11 @@ def bounds(torch, op, args):
     if op == "byteplane":          # launch/roofline.py's 2nV + V bytes
         packed, base = args
         return 2 * packed.numel() + base.numel(), packed.numel()
+    if op == "ef_record_decode":   # records and table entries read once
+        buf, rec_start, rec_len, pos, r_max = args
+        b = pos.numel()
+        return (int(rec_len[pos].sum()) + b * (8 + 8 + 4)
+                + b * (r_max + 1) * 8), 0
     if op == "huffman_decode":     # the records read, the rows written
         from repro_torch.core.codec.huffman import (decode_at_torch,
                                                     record_bytes_torch)
@@ -3715,6 +3869,40 @@ def pq_adc_yardsticks(torch, parity) -> None:
         f"32 a clock at {mhz:.0f} MHz)")
 
 
+def record_yardstick(torch, parity) -> None:
+    """ef_record_decode on one segment of rows of each restore cell's
+    store (the shard's records: sift1b-shard 4,194,304, deep1b-shard its
+    first 1,398,101): the kernel's device time with the width given (no
+    read-back), the plain version's (its passes and reads included), the
+    byte bound, and the wall of the op as decode_batch calls it (the
+    largest count read back, then the launch; host clock around a
+    synchronised call, median of 5)."""
+    t0 = time.time()
+    kern, plain = parity.ops["ef_record_decode"]
+    buf, st, ln = parity.records
+    parts = []
+    for name, rows in RESTORE_ROWS.items():
+        pos = torch.arange(min(rows, st.numel()), device=parity.dev)
+        args = (buf, st, ln, pos, Shard.R)
+        ms = cuda_ms(torch, lambda: kern(*args))
+        plain_ms = cuda_ms(torch, lambda: plain(*args), reps=3)
+        walls = []
+        for _ in range(5):
+            w0 = sync_time(torch)
+            kern(buf, st, ln, pos)
+            walls.append(sync_time(torch, w0) * 1e3)
+        nbytes = bounds(torch, "ef_record_decode", args)[0]
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        parts.append(
+            f"{name} segment ({pos.numel()} records, {nbytes / 1e9:.3f} GB):"
+            f" kernel {ms:.4f} ms ({100 * bound / ms:.1f}% of the bound, "
+            f"{nbytes / ms / 1e6:.1f} GB/s), bound {bound:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, op wall with its read-back "
+            f"{sorted(walls)[2]:.4f} ms")
+    parity.records_s += time.time() - t0
+    log("ef_record_decode yardstick: " + "; ".join(parts))
+
+
 def time_kernels(torch, parity) -> dict:
     """Per-kernel device times on the shard's inputs, taken before the
     storage phase; then the parity inputs, which hold the shard's tables,
@@ -3724,6 +3912,7 @@ def time_kernels(torch, parity) -> dict:
     beam_step_regimes(torch, parity)
     load_yardstick(torch, parity)
     pq_adc_yardsticks(torch, parity)
+    record_yardstick(torch, parity)
     times = {}
     for op, args in parity.shard_in.items():
         kern, plain = parity.ops[op]
@@ -3737,7 +3926,7 @@ def time_kernels(torch, parity) -> dict:
             cost=bounds(torch, op, args), sets=len(sets),
             shapes=[tuple(a.shape) for a in args if hasattr(a, "shape")])
     parity.shard_in = parity.cold = parity.beam_regimes = None
-    parity.segments = None
+    parity.segments = parity.records = None
     return times
 
 

@@ -18,7 +18,8 @@ reference. On tensors: ``encode_slots_torch`` (byte-identical to a loop of
 ``encode_slot``), ``decode_slots_torch`` (the plain PyTorch version of the
 ``ef_decode`` kernel, the reference's ``decode_slot_jnp`` batched), and the
 batched record coder ``encode_records_torch`` / ``encode_records_into_torch``
-/ ``decode_records_torch`` (byte-identical to a loop of ``encode_record``).
+/ ``decode_records_torch`` (byte-identical to a loop of ``encode_record``;
+the decode is the plain version of the ``ef_record_decode`` kernel).
 On device, slots are an int32 bit-view of the uint32 words.
 """
 from __future__ import annotations

@@ -17,7 +17,8 @@ Elias-Fano record with the batched torch coder and packs them with
 ``pack_blocks_torch``: the same bytes as the reference. The per-vertex
 read API (``get_neighbors``, ``get_neighbors_batch``, prefetch) is the
 reference's host-side I/O model and decodes one record on the host;
-``decode_batch`` decodes many records where they lie.
+``decode_batch`` decodes many records where they lie (one
+``ef_record_decode`` launch on the card).
 """
 from __future__ import annotations
 
@@ -27,6 +28,9 @@ import numpy as np
 import torch
 
 from ... import tracing
+from ...kernels import dispatch
+from ...kernels.ef_record_decode.ef_record_decode import (MAX_RECORD_BYTES,
+                                                          fits_stage)
 from ..codec import elias_fano as ef
 from ..codec import registry as codecs
 from ..search.beam import resolve_device
@@ -368,19 +372,32 @@ class CompressedIndexStore:
     def decode_batch(self, ids) -> tuple[torch.Tensor, torch.Tensor]:
         """Decode the records of many vertices at once where the image
         lies (Elias-Fano records only; no I/O accounting, no cache): the
-        bulk check that every record round-trips. Returns (sorted external
-        neighbor ids ``[B, max count]`` int64 padded with -1, counts)."""
+        bulk check that every record round-trips, and a restore's read of
+        the lists. Returns (sorted external neighbor ids ``[B, max count]``
+        int64 padded with -1, counts): ``dispatch.ef_record_decode``, one
+        kernel launch and one read of the largest count on the card. An id
+        outside [0, n) gets count -1 and a row of -1. A store whose records
+        could be longer than the kernel stages is refused."""
         if self.codec != "elias_fano":
             raise ValueError("decode_batch decodes Elias-Fano records only")
+        if not fits_stage(self.r, self.universe):
+            raise ValueError(
+                f"decode_batch: records of up to {self.r} ids below "
+                f"{self.universe} may be longer than {MAX_RECORD_BYTES} B")
         with tracing.span("istore.decode_batch"):
             if not isinstance(ids, torch.Tensor):
                 ids = torch.from_numpy(np.ascontiguousarray(ids,
                                                             dtype=np.int64))
-            pos = ids.to(device=self.data.device, dtype=torch.int64)
+            pos = ids.to(device=self.data.device,
+                         dtype=torch.int64).contiguous()
             if self.order is not None:
-                pos = torch.from_numpy(self.order.perm).to(pos.device)[pos]
-            vals, cnt = ef.decode_records_torch(
-                self.data, self.rec_start[pos], self.rec_len[pos])
+                n = self.rec_start.shape[0]
+                perm = torch.from_numpy(self.order.perm).to(pos.device)
+                inside = (pos >= 0) & (pos < n)
+                pos = torch.where(inside, perm[pos.clamp(0, max(n - 1, 0))],
+                                  -1)
+            vals, cnt = dispatch.ef_record_decode(
+                self.data, self.rec_start, self.rec_len, pos)
             if self.order is not None:
                 inv = torch.from_numpy(self.order.inv).to(vals.device)
                 big = torch.iinfo(torch.int64).max

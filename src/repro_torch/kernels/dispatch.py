@@ -32,9 +32,11 @@ REQUESTED = ("auto", "auto-tuned", "off")
 
 class KernelConfig(NamedTuple):
     """Per-op backend request, the reference's five fields. ``pq_adc``
-    drives both ADC ops (batched and single-LUT); ``byteplane`` drives the
-    vector store's XOR-delta inverse on loads, which runs inside
-    ``huffman_decode`` (and the standalone ``byteplane_decode``)."""
+    drives both ADC ops (batched and single-LUT); ``ef_decode`` both
+    Elias-Fano decodes (the slots and the index store's records);
+    ``byteplane`` drives the vector store's XOR-delta inverse on loads,
+    which runs inside ``huffman_decode`` (and the standalone
+    ``byteplane_decode``)."""
     pq_adc: str = "auto"
     ef_decode: str = "auto"
     rerank_l2: str = "auto"
@@ -128,6 +130,8 @@ def _registry() -> dict[tuple[str, str], Callable]:
     from .byteplane.byteplane import (byteplane_decode_cuda,
                                       byteplane_decode_ref)
     from .ef_decode.ef_decode import ef_decode_cuda, ef_decode_ref
+    from .ef_record_decode.ef_record_decode import (ef_record_decode_cuda,
+                                                    ef_record_decode_ref)
     from .huffman_decode.huffman_decode import (huffman_decode_cuda,
                                                 huffman_decode_ref)
     from .pq_adc.pq_adc import (pq_adc_batched_cuda, pq_adc_batched_ref,
@@ -140,6 +144,8 @@ def _registry() -> dict[tuple[str, str], Callable]:
             ("pq_adc", pq_adc_ref, pq_adc_cuda),
             ("pq_adc_batched", pq_adc_batched_ref, pq_adc_batched_cuda),
             ("ef_decode", ef_decode_ref, ef_decode_cuda),
+            ("ef_record_decode", ef_record_decode_ref,
+             ef_record_decode_cuda),
             ("rerank_l2", rerank_l2_ref, rerank_l2_cuda),
             ("beam_step", beam_step_ref, beam_step_cuda),
             ("byteplane", byteplane_decode_ref, byteplane_decode_cuda),
@@ -195,6 +201,19 @@ def ef_decode(slots, r_max: int, universe: int,
     cfg = cfg or KernelConfig()
     return _impl("ef_decode", cfg.ef_decode, slots)(slots, r_max, universe,
                                                     ids)
+
+
+def ef_record_decode(buf, rec_start, rec_len, pos,
+                     cfg: KernelConfig | None = None):
+    """The index store's Elias-Fano records at positions ``pos`` [B] int64
+    of the [N] record table (``rec_start`` int64 byte offsets, ``rec_len``
+    int32 lengths) into the uint8 image ``buf`` -> (values [B, max count]
+    int64, -1 past each count; counts [B] int64). A position outside
+    [0, N) gives count -1 and a row of -1. Routed by ``cfg.ef_decode``,
+    the field of the Elias-Fano decode."""
+    cfg = cfg or KernelConfig()
+    return _impl("ef_record_decode", cfg.ef_decode, buf)(buf, rec_start,
+                                                        rec_len, pos)
 
 
 def rerank_l2(queries, cands, cfg: KernelConfig | None = None, ids=None):
