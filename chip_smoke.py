@@ -3789,6 +3789,52 @@ def beam_step_regimes(torch, parity) -> None:
         f"{Parity.COLD_SETS} id sets): " + "; ".join(parts))
 
 
+def wide_pq_timings(torch, parity) -> None:
+    """The serve cells' PQ shapes beside the shard's: beam_step and
+    pq_adc_batched at M = 384 (768-d rows' 384-byte codes, the LUT in 12
+    slices of 32 sub-spaces) into 2,000,000 code rows at the hop's shapes
+    (nq 1,024, E 512 ids 60% kept, L 200), and pq_encode at DEEP1B's
+    dsub 3 (262,144 x 96 float32 rows, M = 32): each bit for bit against
+    its plain version, then its device time (cycling fresh id sets) beside
+    its byte or operation bound."""
+    from repro_torch.kernels.beam_step.beam_step import lut_slices
+    n, nq, e, l_size, m, k = 2_000_000, 1024, 512, 200, 384, 256
+    codes = parity.randint(256, n, m, dtype=torch.uint8)
+    luts = parity.rand(nq, m, k).abs_()
+    cand_ids = parity.randint(n, nq, l_size, dtype=torch.int32)
+    cand_d, order = parity.ops["pq_adc_batched"][0](
+        codes, luts, cand_ids).sort(1)
+    cand_ids = torch.gather(cand_ids, 1, order)
+
+    def new_ids():
+        keep = torch.rand(nq, e, generator=parity.g, device=parity.dev) < 0.6
+        return torch.where(keep, parity.randint(n, nq, e), -1).to(torch.int32)
+    hops = [(codes, luts, cand_ids, cand_d.contiguous(), new_ids())
+            for _ in range(Parity.COLD_SETS)]
+    parity.compare("beam_step", f"M={m} hop, LUT in "
+                   f"{lut_slices(m, k, e, l_size)} slices", *hops[0])
+    parity.compare("pq_adc_batched", f"M={m} by id", codes, luts, hops[0][4])
+    parts = []
+    for op, sets in (("beam_step", hops),
+                     ("pq_adc_batched", [(codes, luts, h[4]) for h in hops])):
+        kern = parity.ops[op][0]
+        ms = cuda_ms(torch, [lambda a=a: kern(*a) for a in sets])
+        nbytes = bounds(torch, op, sets[0])[0]
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        parts.append(f"{op} M={m} {ms:.4f} ms, bound {bound:.4f} ms "
+                     f"({nbytes / 1e6:.1f} MB, {100 * bound / ms:.1f}%)")
+    x = parity.rand(1 << 18, 96)
+    cents = parity.rand(32, 256, 3)
+    parity.compare("pq_encode", "f32 262144x96 M=32 (dsub 3)", x, cents)
+    ms = cuda_ms(torch, lambda: parity.ops["pq_encode"][0](x, cents))
+    nbytes, ops = bounds(torch, "pq_encode", (x, cents))
+    bound = max(nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3
+    parts.append(f"pq_encode dsub 3 {ms:.4f} ms, bound {bound:.4f} ms "
+                 f"(operations, {100 * bound / ms:.1f}%)")
+    log("wide PQ (rows cold, cycling "
+        f"{Parity.COLD_SETS} id sets): " + "; ".join(parts))
+
+
 def load_yardstick(torch, parity) -> None:
     """The load's old composition on each full segment of phase 2:
     ``decode_at_torch`` then one byteplane launch per chunk with a base,
@@ -3910,6 +3956,7 @@ def time_kernels(torch, parity) -> dict:
     absorbed_gathers(torch, parity)
     old_compositions(torch, parity)
     beam_step_regimes(torch, parity)
+    wide_pq_timings(torch, parity)
     load_yardstick(torch, parity)
     pq_adc_yardsticks(torch, parity)
     record_yardstick(torch, parity)

@@ -17,6 +17,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ... import tracing
 from ...kernels import dispatch
 
 
@@ -101,10 +102,12 @@ def encode_pq_torch(vectors: torch.Tensor, centroids: torch.Tensor,
     folded over ``dsub`` in order (numpy's order for ``dsub < 8``, so the
     codes equal ``encode_pq``'s)."""
     n = vectors.shape[0]
-    m = centroids.shape[0]
-    out = torch.empty((n, m), dtype=torch.uint8, device=vectors.device)
-    for a in range(0, n, chunk):
-        out[a:a + chunk] = dispatch.pq_encode(vectors[a:a + chunk], centroids)
+    m, _, dsub = centroids.shape
+    with tracing.span("pq.encode", {"rows": n, "m": m, "dsub": dsub}):
+        out = torch.empty((n, m), dtype=torch.uint8, device=vectors.device)
+        for a in range(0, n, chunk):
+            out[a:a + chunk] = dispatch.pq_encode(vectors[a:a + chunk],
+                                                  centroids)
     return out
 
 

@@ -14,8 +14,12 @@ The whole query batch advances through one loop; a finished row is frozen
 by masking its updates, so each row's trajectory equals its solo (nq=1)
 run. The reference's two ``lax.while_loop``s are host loops here that stop
 when no row is active (one device-to-host read of that flag per
-iteration). Every top-k is a stable ascending sort (``stable_smallest``):
-``lax.top_k`` breaks ties to the lower index and ``torch.topk`` does not.
+iteration). On the card the traversal's rounds after the first replay a
+CUDA graph of one round (``_capture``), so a round costs the host one
+launch, not ~50 op dispatches; ``kernels.build.LAUNCHES`` counts a
+captured kernel once. Every top-k is a stable ascending sort
+(``stable_smallest``): ``lax.top_k`` breaks ties to the lower index and
+``torch.topk`` does not.
 Scatters the reference writes with ``mode="drop"`` to index ``n`` / ``H``
 write into one padding column here, which no read looks at.
 
@@ -32,8 +36,9 @@ import torch
 
 from ... import tracing
 from ...kernels import dispatch
-from ...kernels.beam_step.beam_step import stable_smallest
-from ...kernels.dispatch import KernelConfig, resolve_device
+from ...kernels.beam_step.beam_step import lut_slices, stable_smallest
+from ...kernels.dispatch import (KernelConfig, resolve_backend,
+                                 resolve_device)
 from ..graph.pq import build_lut_torch
 
 
@@ -160,10 +165,64 @@ def _any(flag: torch.Tensor) -> bool:
         return bool(flag.any())
 
 
+def _graphable(luts: torch.Tensor, p: SearchParams) -> bool:
+    """A round can be captured: it runs on the card, reads nothing back to
+    the host (no trace buffers, whose writes are masked by row) and keeps
+    its visited set in the hash table (the dense set's index writes are
+    left to the plain loop), with every dispatched op a CUDA kernel."""
+    if not luts.is_cuda or p.trace_fetches or p.trace_hints \
+            or p.visited_hash_bits <= 0:
+        return False
+    ops = [("ef_decode", p.kernels.ef_decode)] if p.use_ef else []
+    ops.append(("beam_step", p.kernels.beam_step)
+               if p.kernels.beam_step != "off"
+               else ("pq_adc_batched", p.kernels.pq_adc))
+    return all(resolve_backend(req, luts.device, op) == "cuda"
+               for op, req in ops)
+
+
+#: Per device: the memory pool of the traversal's graphs and the last graph
+#: captured into it, held until the next capture has taken the pool over
+#: (the graphs share it one after another, never at once).
+_GRAPHS: dict = {}
+
+
+def _capture(step, state: tuple):
+    """``step`` (state -> next state, its last entry the active rows)
+    captured as one CUDA graph that also writes the next state over
+    ``state``'s tensors and whether any row is active into a flag ->
+    (replay, flag)."""
+    dev = state[0].device
+    held = _GRAPHS.get(dev)
+    pool = held[0] if held else torch.cuda.graph_pool_handle()
+    g = torch.cuda.CUDAGraph()
+    here = torch.cuda.current_stream(dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(here)
+    flag = torch.empty((), dtype=torch.bool, device=dev)
+    with tracing.span("search.capture"), torch.cuda.stream(side):
+        g.capture_begin(pool=pool, capture_error_mode="thread_local")
+        out = step(*state)
+        for old, new in zip(state, out):
+            if new is not old:
+                old.copy_(new)
+        flag.copy_(out[-1].any())
+        del out
+        g.capture_end()
+    here.wait_stream(side)
+    _GRAPHS[dev] = (pool, g)
+    return g.replay, flag
+
+
 def traverse(index: DeviceIndex, luts: torch.Tensor, p: SearchParams):
     """Batched beam traversal: per-query LUTs [nq, M, K] ->
     (cand_ids [nq, L], cand_d [nq, L], (iters, fetched, pf_iter, pq, trace,
     hints)).
+
+    On the card (where :func:`_graphable`) the rounds after the
+    first replay one CUDA graph of a round, so the host issues one launch
+    a round instead of the round's ~50 ops; the kernels and their order
+    are the same, so are the results, bit for bit.
 
     A row with no unexpanded frontier (or out of iterations) is frozen: its
     frontier distances are masked to +inf so it selects nothing, fetches
@@ -183,6 +242,13 @@ def traverse(index: DeviceIndex, luts: torch.Tensor, p: SearchParams):
     rows = torch.arange(nq, device=dev)
     trace_len = p.max_iters if p.trace_fetches else 0
     hint_len = p.max_iters if p.trace_hints else 0
+    m, k = luts.shape[1], luts.shape[2]
+    e = W * (p.r_max if p.use_ef else index.neighbors.shape[1])
+    # the slices the fused hop's CUDA kernel stages a LUT in (1 elsewhere)
+    hop = {"m": m, "lut_bytes": m * k * 4,
+           "lut_slices": (lut_slices(m, k, e, L)
+                          if luts.is_cuda and p.kernels.beam_step != "off"
+                          else 1)}
 
     entry = index.medoid.to(torch.int32).expand(nq).contiguous()
     e_d = dispatch.pq_adc_batched(index.pq_codes, luts, p.kernels,
@@ -220,14 +286,15 @@ def traverse(index: DeviceIndex, luts: torch.Tensor, p: SearchParams):
         unexp = _unexpanded(cand_ids, expanded)
         return unexp, unexp.any(1) & (iters < p.max_iters)
 
-    def _record(buf, ids):
+    def _record(buf, ids, iters):
         # the reference's trace.at[rows, iters].set(ids, mode="drop")
         ok = iters < buf.shape[1]
         buf[rows[ok], iters[ok].long()] = ids[ok]
 
-    unexp, active = _frontier(cand_ids, expanded, iters)
-    go = _any(active)
-    while go:
+    def _round(cand_ids, cand_d, expanded, iters, stab, pf_iter, prev_top,
+               unexp, active):
+        # one expansion of every active row; fetched, pq_ct, visited and
+        # the trace buffers are updated in place
         with tracing.span("search.round"):
             frontier_d = torch.where(unexp & active[:, None], cand_d,
                                      torch.inf)
@@ -241,9 +308,9 @@ def traverse(index: DeviceIndex, luts: torch.Tensor, p: SearchParams):
             else:
                 expanded[rows[:, None], torch.where(sel_ids >= 0, sel_ids,
                                                     n).long()] = True
-            fetched += (sel_ids >= 0).sum(1, dtype=torch.int32)
+            fetched.add_((sel_ids >= 0).sum(1, dtype=torch.int32))
             if p.trace_fetches:
-                _record(trace, sel_ids)
+                _record(trace, sel_ids, iters)
             if p.trace_hints:
                 # Provisional frontier for round r+1, read BEFORE this
                 # round's neighbours merge: the top-W unexpanded survivors
@@ -254,7 +321,7 @@ def traverse(index: DeviceIndex, luts: torch.Tensor, p: SearchParams):
                 prov_ids = torch.where(
                     torch.isfinite(prov_v),
                     torch.gather(cand_ids, 1, prov_slot), -1)
-                _record(hints, prov_ids)
+                _record(hints, prov_ids, iters)
 
             nbrs = _gather_neighbors(index, sel_ids, p, n)        # [nq, W*R]
             # Dedupe within the round: sort + first occurrence.
@@ -275,22 +342,24 @@ def traverse(index: DeviceIndex, luts: torch.Tensor, p: SearchParams):
                 visited.scatter_(1, torch.where(ok, uniq, n).long(),
                                  torch.ones_like(ok))
             new_ids = torch.where(ok, uniq, -1)
-            pq_ct += ok.sum(1, dtype=torch.int32)
+            pq_ct.add_(ok.sum(1, dtype=torch.int32))
 
-            if p.kernels.beam_step != "off":
-                # the fused hop reads the code rows of new_ids itself
-                cand_ids, cand_d, top_i = dispatch.beam_step(
-                    index.pq_codes, luts, cand_ids, cand_d, new_ids,
-                    p.kernels)
-                top_i = top_i.long()
-            else:
-                # the ADC reads the code rows of new_ids; +inf where masked
-                new_d = dispatch.pq_adc_batched(index.pq_codes, luts,
-                                                p.kernels, ids=new_ids)
-                merged_ids = torch.cat([cand_ids, new_ids], 1)
-                cand_d, top_i = stable_smallest(
-                    torch.cat([cand_d, new_d], 1), L)
-                cand_ids = torch.gather(merged_ids, 1, top_i)
+            with tracing.span("search.hop", hop):
+                if p.kernels.beam_step != "off":
+                    # the fused hop reads the code rows of new_ids itself
+                    cand_ids, cand_d, top_i = dispatch.beam_step(
+                        index.pq_codes, luts, cand_ids, cand_d, new_ids,
+                        p.kernels)
+                    top_i = top_i.long()
+                else:
+                    # the ADC reads the code rows of new_ids; +inf where
+                    # masked
+                    new_d = dispatch.pq_adc_batched(index.pq_codes, luts,
+                                                    p.kernels, ids=new_ids)
+                    merged_ids = torch.cat([cand_ids, new_ids], 1)
+                    cand_d, top_i = stable_smallest(
+                        torch.cat([cand_d, new_d], 1), L)
+                    cand_ids = torch.gather(merged_ids, 1, top_i)
             if use_hash:
                 merged_exp = torch.cat([expanded, torch.zeros_like(ok)], 1)
                 expanded = torch.gather(merged_exp, 1, top_i)
@@ -305,7 +374,28 @@ def traverse(index: DeviceIndex, luts: torch.Tensor, p: SearchParams):
             iters = iters + active.to(torch.int32)
             prev_top = torch.where(active[:, None], top_now, prev_top)
             unexp, active = _frontier(cand_ids, expanded, iters)
-            go = _any(active)
+        return (cand_ids, cand_d, expanded, iters, stab, pf_iter, prev_top,
+                unexp, active)
+
+    unexp, active = _frontier(cand_ids, expanded, iters)
+    state = (cand_ids, cand_d, expanded, iters, stab, pf_iter, prev_top,
+             unexp, active)
+    go = _any(active)
+    if go and _graphable(luts, p):
+        # the first round runs as it is written, the rest replay its
+        # capture: one graph launch and one flag read a round
+        state = _round(*state)
+        go = _any(state[-1])
+        if go:
+            replay, flag = _capture(_round, state)
+            while go:
+                with tracing.span("search.round"):
+                    replay()
+                go = _any(flag)
+    while go:
+        state = _round(*state)
+        go = _any(state[-1])
+    cand_ids, cand_d, _, iters, _, pf_iter = state[:6]
 
     return cand_ids, cand_d, (iters, fetched, pf_iter, pq_ct + 1, trace,
                               hints)

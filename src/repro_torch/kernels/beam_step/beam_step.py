@@ -14,13 +14,22 @@ the L smallest of ``[cand | new]`` by (distance, merged index), with
 ``repro/kernels/beam_step/beam_step.py::beam_step_pallas``), which reads
 each row of ``pq_codes`` itself; ``beam_step_ref`` is its plain PyTorch
 version, op for op the unfused hot sequence of ``core/search/beam.py``.
+Where an ``[M, K]`` LUT does not fit a block's shared memory the kernel
+stages it in slices (``lut_slices``); the result is the same.
 ``lax.top_k`` puts the lower index first on ties and ``torch.topk`` does
 not, so every top-k here is a stable ascending sort (``stable_smallest``).
 """
 import torch
 
-from ..build import check_cuda, launch
+from ..build import check_cuda, launch, query
 from ..pq_adc.pq_adc import pq_adc_batched_ref
+
+
+def lut_slices(m: int, k: int, e: int, l_size: int) -> int:
+    """LUT slices the CUDA kernel stages at these shapes on the current
+    card (1: the whole LUT; ceil(m / 32) where it does not fit a block's
+    shared memory beside the block's keys), as its entry point plans."""
+    return query("beam_step", "beam_step_lut_slices", m, k, e, l_size)
 
 
 def stable_smallest(x: torch.Tensor, k: int):

@@ -112,6 +112,15 @@ def _entry(name: str, entry: str, pointers: tuple[bool, ...]):
     return fn
 
 
+def query(name: str, entry: str, *args: int) -> int:
+    """Call C entry ``entry`` of kernel library ``name``, which takes
+    ``long long`` arguments and no stream and returns a ``long long``."""
+    fn = getattr(library(name), entry)
+    fn.argtypes = [ctypes.c_longlong] * len(args)
+    fn.restype = ctypes.c_longlong
+    return int(fn(*args))
+
+
 def launch(name: str, entry: str, *args) -> None:
     """Call C entry ``entry`` of kernel library ``name`` with ``args``
     (tensors pass their data pointer, ``None`` a null pointer, ints pass as

@@ -22,7 +22,11 @@
 // loads where M or the table's address does not allow them). After the
 // barrier each thread folds its rows in order with __fadd_rn, so the sum
 // is bit-identical to the plain version's left fold. The copy, the loads
-// and the fold are adc_rows.cuh's, shared with beam_step.cu.
+// and the fold are adc_rows.cuh's, shared with beam_step.cu. A LUT too
+// large for a block's shared memory (the entry point asks the device:
+// M=384 at K=256, 384 KiB) is staged adc::kSlice sub-spaces at a time in two
+// buffers (fold_sliced), each row's sum carried over the slices in m
+// order in its output entry.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -82,21 +86,52 @@ pq_adc_batched_kernel(const uint8_t* __restrict__ table, long long n,
   }
 }
 
+// Row x of query q: ids[q, x], or row q * e + x of a gathered table.
+struct QueryRows {
+  const int32_t* ids;
+  long long q;
+  int e;
+  __device__ __forceinline__ long long operator()(int x) const {
+    return ids ? (long long)ids[q * e + x] : q * e + x;
+  }
+};
+
+// The same scores with the LUT staged slice by slice (see the top).
+template <int VEC>
+__global__ void __launch_bounds__(kThreads)
+pq_adc_batched_wide_kernel(const uint8_t* __restrict__ table, long long n,
+                           const float* __restrict__ luts,
+                           const int32_t* __restrict__ ids,
+                           float* __restrict__ out, int e, int m, int k,
+                           int bulk, int off_bar) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* bufs = (float*)smem;
+  unsigned long long* bar = (unsigned long long*)(smem + off_bar);
+  const long long q = blockIdx.x;
+  const float* lq = luts + q * m * k;
+  if (bulk) adc::slices_start(bufs, lq, m, k, bar);
+  adc::fold_sliced<VEC, kRows>(table, n, lq, m, k, e, bulk, bufs, bar,
+                               QueryRows{ids, q, e}, out + q * e);
+}
+
 template <int VEC>
 int launch_vec(const void* table, const void* luts, const void* ids,
                void* out, long long n, long long nq, long long e,
-               long long m, long long k, cudaStream_t stream) {
+               long long m, long long k, bool wide, cudaStream_t stream) {
   const size_t lut_bytes = (size_t)m * k * sizeof(float);
   const int bulk = ((uintptr_t)luts % 16 == 0) && (lut_bytes % 16 == 0);
-  const size_t off_bar = (lut_bytes + 15) & ~(size_t)15;
+  const size_t off_bar = wide ? adc::slice_bytes(k)
+                              : (lut_bytes + 15) & ~(size_t)15;
   const size_t smem = off_bar + 16;
+  auto kernel = pq_adc_batched_kernel<VEC>;
+  if constexpr (VEC != 0)  // a wide row is read in slices, never whole
+    if (wide) kernel = pq_adc_batched_wide_kernel<VEC>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        pq_adc_batched_kernel<VEC>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  pq_adc_batched_kernel<VEC><<<(unsigned)nq, kThreads, smem, stream>>>(
+  kernel<<<(unsigned)nq, kThreads, smem, stream>>>(
       (const uint8_t*)table, n, (const float*)luts, (const int32_t*)ids,
       (float*)out, (int)e, (int)m, (int)k, bulk, (int)off_bar);
   return (int)cudaGetLastError();
@@ -104,17 +139,36 @@ int launch_vec(const void* table, const void* luts, const void* ids,
 
 }  // namespace
 
-// ids == nullptr: the table is [nq * e, m] and no row is masked.
+// ids == nullptr: the table is [nq * e, m] and no row is masked. The LUT
+// is staged whole where it fits a block's shared memory on the device,
+// else in ceil(m / adc::kSlice) slices.
 extern "C" int pq_adc_batched(const void* table, const void* luts,
                               const void* ids, void* out, long long n,
                               long long nq, long long e, long long m,
                               long long k, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (adc::lut_sliced(m, k, 16)) {
+    switch (adc::slice_vec(table, m)) {
+      case 16:
+        return launch_vec<16>(table, luts, ids, out, n, nq, e, m, k, true, s);
+      case 8:
+        return launch_vec<8>(table, luts, ids, out, n, nq, e, m, k, true, s);
+      case 4:
+        return launch_vec<4>(table, luts, ids, out, n, nq, e, m, k, true, s);
+      default:
+        return launch_vec<1>(table, luts, ids, out, n, nq, e, m, k, true, s);
+    }
+  }
   switch (adc::row_vec(table, m)) {
-    case 0: return launch_vec<0>(table, luts, ids, out, n, nq, e, m, k, s);
-    case 16: return launch_vec<16>(table, luts, ids, out, n, nq, e, m, k, s);
-    case 8: return launch_vec<8>(table, luts, ids, out, n, nq, e, m, k, s);
-    case 4: return launch_vec<4>(table, luts, ids, out, n, nq, e, m, k, s);
-    default: return launch_vec<1>(table, luts, ids, out, n, nq, e, m, k, s);
+    case 0:
+      return launch_vec<0>(table, luts, ids, out, n, nq, e, m, k, false, s);
+    case 16:
+      return launch_vec<16>(table, luts, ids, out, n, nq, e, m, k, false, s);
+    case 8:
+      return launch_vec<8>(table, luts, ids, out, n, nq, e, m, k, false, s);
+    case 4:
+      return launch_vec<4>(table, luts, ids, out, n, nq, e, m, k, false, s);
+    default:
+      return launch_vec<1>(table, luts, ids, out, n, nq, e, m, k, false, s);
   }
 }

@@ -18,7 +18,10 @@ Single LUT: ``[n, M]`` uint8 or int32 codes x ``[M, K]`` LUT -> ``[n]``.
 reference's ``pq_adc_ref``.
 
 Every version folds over m = 0..M-1 in order, which is also what jnp's
-``.sum(-1)`` does for these widths, so results are bit-equal.
+``.sum(-1)`` does for these widths, so results are bit-equal. A LUT that
+does not fit a block's shared memory (M = 384 at K = 256) is staged in
+slices of 32 sub-spaces, the fold carried across them in order; the
+kernel's entry point asks the device which.
 """
 import torch
 

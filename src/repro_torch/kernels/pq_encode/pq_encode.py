@@ -6,13 +6,17 @@ first centroid at least squared distance, folded over dsub in order).
 counterpart: the reference encodes with numpy on the host
 (``repro/core/graph/pq.py::encode_pq``), and so does this port's
 ``core/graph/pq.py::encode_pq``. ``pq_encode_ref`` is the kernel's plain
-PyTorch version; for dsub < 8 it gives numpy's codes byte for byte.
+PyTorch version; for dsub < 8 it gives numpy's codes byte for byte. The
+kernel takes any dsub: the widths in ``DSUBS`` are templates, any other
+runs its generic path, which stages a block's inputs beside the
+centroids (the launch fails where they pass a block's shared memory:
+dsub > 113 at K = 256 on an H100).
 """
 import torch
 
 from ..build import check_cuda, launch
 
-DSUBS = (1, 2, 4, 8, 16)
+DSUBS = (1, 2, 3, 4, 8, 16)
 
 
 def pq_encode_ref(vectors: torch.Tensor,
@@ -34,9 +38,9 @@ def pq_encode_cuda(vectors: torch.Tensor,
                    centroids: torch.Tensor) -> torch.Tensor:
     m, k, dsub = centroids.shape
     n, d = vectors.shape
-    if d != m * dsub or dsub not in DSUBS or k > 256:
-        raise ValueError(f"pq_encode takes D = M*dsub with dsub in {DSUBS} "
-                         f"and K <= 256; got D={d}, centroids "
+    if d != m * dsub or dsub < 1 or k > 256:
+        raise ValueError(f"pq_encode takes D = M*dsub, dsub >= 1 and "
+                         f"K <= 256; got D={d}, centroids "
                          f"{tuple(centroids.shape)}")
     entry = {torch.uint8: "pq_encode_u8",
              torch.float32: "pq_encode_f32"}.get(vectors.dtype)

@@ -20,6 +20,7 @@ from conftest import random_graph
 
 from repro_torch.core.codec import huffman
 from repro_torch.core.codec.elias_fano import encode_slot
+from repro_torch.core.graph.pq import encode_pq_torch
 from repro_torch.core.index import build_device_index
 from repro_torch.core.search.beam import DeviceIndex, SearchParams, search
 from repro_torch.data.synthetic import make_queries, make_vector_dataset
@@ -27,7 +28,8 @@ from repro_torch.kernels import build
 from repro_torch.core.storage.vector_store import (DecoupledVectorStore,
                                                    StoreConfig)
 from repro_torch.kernels.beam_step.beam_step import (beam_step_cuda,
-                                                     beam_step_ref)
+                                                     beam_step_ref,
+                                                     lut_slices)
 from repro_torch.kernels.byteplane.byteplane import (byteplane_decode_cuda,
                                                      byteplane_decode_ref)
 from repro_torch.kernels.dispatch import KernelConfig
@@ -330,12 +332,55 @@ def test_beam_step_kernel(cuda, case):
         assert_bits_equal(got, want)
 
 
+#: The fused hop beyond 32-byte rows: folded straight from the table (33,
+#: 48) while the LUT fits a block, else (384 up) staged in 32-sub-space
+#: slices: 16-, 8- and 1-byte slice loads (384, 392, 385), the serve
+#: cell's hop (E = 512, L = 200), its first hop, all masked, and no ids.
+WIDE_BEAM_CASES = {
+    "m33": dict(nq=3, e=20, l_size=8, m=33, seed=33),
+    "m48": dict(nq=3, e=20, l_size=8, m=48, seed=48),
+    "m384": dict(nq=3, e=20, l_size=8, m=384, seed=384),
+    "m392": dict(nq=3, e=20, l_size=8, m=392, seed=392),
+    "m385": dict(nq=2, e=40, l_size=16, m=385, seed=385),
+    "m384-hop": dict(nq=16, e=512, l_size=200, m=384, seed=6),
+    "m384-first-hop": dict(nq=4, e=512, l_size=200, m=384, seed=15,
+                           cands="first-hop"),
+    "m384-all-masked": dict(nq=3, e=12, l_size=8, m=384, seed=11,
+                            mask_p=0.0),
+    "m384-no-ids": dict(nq=2, e=0, l_size=8, m=384, seed=12),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [33, 48])
-def test_beam_step_kernel_wide_rows(cuda, m):
-    """Rows wider than 32 bytes are folded straight from the table (no
-    reference case: jnp's sum is a left fold only up to M = 32)."""
-    args = _on(cuda, *beam_case(3, 20, 8, m, seed=m))
+@pytest.mark.parametrize("case", sorted(WIDE_BEAM_CASES))
+def test_beam_step_kernel_wide_rows(cuda, case):
+    """Rows wider than 32 bytes, and LUTs wider than a block's shared
+    memory, bit for bit (no reference case: jnp's sum is a left fold only
+    up to M = 32)."""
+    args = _on(cuda, *beam_case(**WIDE_BEAM_CASES[case]))
+    for got, want in zip(beam_step_cuda(*args), beam_step_ref(*args)):
+        assert_bits_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_beam_step_lut_slices_follow_the_cards_shared_memory(cuda):
+    """The fused hop stages the whole LUT at the shards' M = 32 and in
+    32-sub-space slices where M * K * 4 bytes and the block's keys pass
+    what a block may take (227 KB on an H100)."""
+    assert lut_slices(32, 256, 512, 200) == 1
+    assert lut_slices(200, 256, 512, 200) == 1
+    assert lut_slices(384, 256, 512, 200) == 12
+    assert lut_slices(385, 256, 512, 200) == 13
+    assert lut_slices(384, 16, 512, 200) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [32, 384])
+def test_beam_step_kernel_unaligned_luts(cuda, m):
+    """LUTs off 16-byte alignment are staged without the bulk copy, whole
+    (M = 32) or slice by slice (M = 384)."""
+    args = _on(cuda, *beam_case(4, 100, 32, m, seed=m + 1))
+    args[1] = _unaligned(args[1], 1)
     for got, want in zip(beam_step_cuda(*args), beam_step_ref(*args)):
         assert_bits_equal(got, want)
 
@@ -383,7 +428,22 @@ def test_pq_adc_batched_kernel_by_id(cuda, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [8, 16, 32, 48])
+@pytest.mark.parametrize("m", [32, 384, 385, 392])
+@pytest.mark.parametrize("ids", ["random", "edges", "all-masked"])
+def test_pq_adc_batched_kernel_wide_luts(cuda, m, ids):
+    """M = 384 (a LUT in 12 slices), ragged and 8-byte rows, and M = 32
+    (the whole LUT): by id == the plain version, and without ids on the
+    gathered rows; more rows than one group of the kernel."""
+    table, luts, rows = _on(cuda, *adc_ids_case(3, 600, m, seed=m, ids=ids))
+    got = pq_adc_batched_cuda(table, luts, rows)
+    assert_bits_equal(got, pq_adc_batched_ref(table, luts, rows))
+    gathered = table[rows.clamp(0, len(table) - 1).long()]
+    assert_bits_equal(pq_adc_batched_cuda(gathered, luts),
+                      pq_adc_batched_ref(gathered, luts))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [8, 16, 32, 48, 384])
 @pytest.mark.parametrize("shift", [1, 4, 8])
 def test_pq_adc_batched_kernel_unaligned(cuda, m, shift):
     """A table off 16-byte alignment (8-, 4- and 1-byte row loads) and
@@ -569,14 +629,20 @@ def test_rerank_l2_kernel(cuda, q, c, d, dtype):
     assert_bits_equal(rerank_l2_cuda(qt, xt), rerank_l2_ref(qt, xt))
 
 
+#: rerank_l2 cases of the card only: rows over several of the kernel's
+#: 512-byte tiles, and the 768-d float32 re-rank batch (3 KiB rows).
+LONG_RERANK_CASES = {"long-rows": dict(q=3, c=6, d=1100, seed=11),
+                     "d768-batch": dict(q=64, c=10, d=768, seed=12)}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [np.uint8, np.float32])
-@pytest.mark.parametrize("case", sorted(RERANK_ID_CASES) + ["long-rows"])
+@pytest.mark.parametrize("case", sorted(RERANK_ID_CASES)
+                         + sorted(LONG_RERANK_CASES))
 def test_rerank_l2_kernel_by_id(cuda, case, dtype):
     """Rows by id (clipped) == the plain version, and == the kernel
-    without ids on the gathered rows; "long-rows" spans several of the
-    kernel's row tiles (512 bytes)."""
-    kw = RERANK_ID_CASES.get(case, dict(q=3, c=6, d=1100, seed=11))
+    without ids on the gathered rows."""
+    kw = RERANK_ID_CASES.get(case) or LONG_RERANK_CASES[case]
     qt, xt, ids = _on(cuda, *rerank_ids_case(dtype=dtype, **kw))
     got = rerank_l2_cuda(qt, xt, ids)
     assert_bits_equal(got, rerank_l2_ref(qt, xt, ids))
@@ -597,8 +663,16 @@ def test_rerank_l2_kernel_unaligned(cuda, shift):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,d,m,dtype", [(600, 32, 8, np.float32),
                                          (3000, 128, 32, np.uint8),
-                                         (50, 8, 8, np.float32)])
+                                         (50, 8, 8, np.float32),
+                                         (3000, 96, 32, np.float32),
+                                         (700, 96, 32, np.uint8),
+                                         (700, 768, 32, np.float32),
+                                         (300, 40, 8, np.float32),
+                                         (300, 48, 8, np.uint8),
+                                         (600, 768, 384, np.float32)])
 def test_pq_encode_kernel(cuda, n, d, m, dtype):
+    """Templated widths (dsub 1, 2, 3, 4) and the generic path (dsub 5, 6,
+    24), duplicated centroids (ties) in every sub-space."""
     rng = np.random.default_rng(n)
     x = (rng.integers(0, 40, (n, d)) if dtype == np.uint8
          else rng.normal(size=(n, d))).astype(dtype)
@@ -606,6 +680,18 @@ def test_pq_encode_kernel(cuda, n, d, m, dtype):
     cents[:, 200:] = cents[:, :56]                    # duplicated centroids
     xt, ct = _on(cuda, x, cents)
     assert_bits_equal(pq_encode_cuda(xt, ct), pq_encode_ref(xt, ct))
+
+
+@pytest.mark.cuda
+def test_pq_encode_kernel_refuses_what_a_block_cannot_hold(cuda):
+    """dsub 114 at K = 256 passes a block's shared memory: the launch is
+    refused with a CUDA error, and the next launch runs clean."""
+    with pytest.raises(RuntimeError, match="cudaError"):
+        pq_encode_cuda(torch.zeros(3, 912, device=cuda),
+                       torch.zeros(8, 256, 114, device=cuda))
+    x, cents = _on(cuda, np.ones((5, 96), np.float32),
+                   np.zeros((32, 256, 3), np.float32))
+    assert (pq_encode_cuda(x, cents) == 0).all()
 
 
 @pytest.mark.cuda
@@ -635,6 +721,68 @@ def test_search_on_card_matches_cpu(cuda, beam_step, bits):
     assert_bits_equal(got[0], want[0])
     assert_bits_equal(got[1], want[1])
     for name, a, b in zip(want[2]._fields, got[2], want[2]):
+        assert_bits_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("beam_step", ["auto", "off"])
+def test_traversal_replays_a_captured_round_bit_for_bit(cuda, beam_step):
+    """With the hash visited set and no trace buffers, the rounds after
+    the first replay a CUDA graph of one round: every output equals the
+    plain loop's on the CPU, bit for bit."""
+    from repro_torch.core.graph.pq import build_lut_torch
+    from repro_torch.core.search import beam
+    vecs = make_vector_dataset("prop-like", 400, 16, seed=3)
+    on_cpu, _, _ = build_device_index(vecs, r=12, l_build=24, pq_m=4,
+                                      seed=3, device="cpu")
+    on_card = DeviceIndex(*(None if t is None else t.to(cuda)
+                            for t in on_cpu))
+    p = beam.check_kernels(SearchParams(
+        l_size=32, beam_width=4, k=10, rerank_batch=10, r_max=12,
+        universe=400, max_iters=64, visited_hash_bits=10,
+        kernels=KernelConfig(beam_step=beam_step)))
+    q = torch.from_numpy(make_queries("prop-like", 9, 16))
+    luts = build_lut_torch(q, on_cpu.pq_centroids)
+    plain = beam.traverse(on_cpu, luts, p)
+    dev = on_card.pq_codes.device
+    held = beam._GRAPHS.get(dev)
+    graphed = beam.traverse(on_card, luts.to(dev), p)
+    assert beam._GRAPHS.get(dev) is not held
+    assert int(graphed[2][0].max()) > 2
+    for a, b in zip(graphed[:2] + graphed[2], plain[:2] + plain[2]):
+        assert_bits_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,m", [(768, 384), (96, 32)])
+def test_wide_pq_search_on_card_matches_cpu(cuda, dim, m):
+    """The serve cells' PQ shapes (M = 384 over 768-d float32 rows, the
+    LUT in 12 slices; M = 32 over 96-d, dsub 3): codes encoded on each
+    device, then the whole search, card == CPU bit for bit."""
+    rng = np.random.default_rng(dim)
+    vecs = rng.normal(size=(400, dim)).astype(np.float32)
+    vecs /= np.linalg.norm(vecs, axis=1, keepdims=True)
+    small, _, _ = build_device_index(vecs, r=12, l_build=24, pq_m=4,
+                                     seed=3, device="cpu")
+    cents = torch.from_numpy(vecs[rng.choice(400, 256, replace=False)]
+                             .reshape(256, m, dim // m).transpose(1, 0, 2)
+                             .copy())
+    on_cpu = small._replace(pq_centroids=cents, pq_codes=encode_pq_torch(
+        small.vectors, cents))
+    on_card = DeviceIndex(*(None if t is None else t.to(cuda)
+                            for t in on_cpu))
+    build.reset_launches()
+    on_card = on_card._replace(pq_codes=encode_pq_torch(on_card.vectors,
+                                                        on_card.pq_centroids))
+    assert_bits_equal(on_card.pq_codes, on_cpu.pq_codes)
+    queries = make_queries("prop-like", 9, dim)
+    p = SearchParams(l_size=32, beam_width=4, k=10, rerank_batch=10,
+                     r_max=12, universe=400, max_iters=64,
+                     visited_hash_bits=10)
+    got = search(on_card, queries, p)
+    assert build.LAUNCHES["pq_encode"] > 0 and build.LAUNCHES["beam_step"] > 0
+    want = search(on_cpu, queries, p, device="cpu")
+    for a, b in zip(got[:2] + tuple(got[2]), want[:2] + tuple(want[2])):
         assert_bits_equal(a, b)
 
 

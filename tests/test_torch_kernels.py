@@ -38,7 +38,8 @@ from repro_torch.kernels.ef_decode.ef_decode import (ef_decode_cuda,
 from repro_torch.kernels.pq_adc.pq_adc import (pq_adc_batched_cuda,
                                                pq_adc_batched_ref,
                                                pq_adc_cuda, pq_adc_ref)
-from repro_torch.kernels.pq_encode.pq_encode import pq_encode_ref
+from repro_torch.kernels.pq_encode.pq_encode import (pq_encode_cuda,
+                                                     pq_encode_ref)
 from repro_torch.kernels.rerank_l2.rerank_l2 import (rerank_l2_cuda,
                                                      rerank_l2_ref)
 
@@ -232,11 +233,14 @@ def test_beam_step_matches_reference(case):
                                                           (3, 1)))
 
 
-def test_beam_step_matches_unfused_composition():
+@pytest.mark.parametrize("m", [8, 384])
+def test_beam_step_matches_unfused_composition(m):
     """The fused op == pq_adc_batched + mask + concat + stable top-L, the
-    composition the hot path runs under beam_step='off'."""
+    composition the hot path runs under beam_step='off', at the small
+    world's M and at a wide code's (M = 384, a LUT in 12 slices on the
+    card)."""
     pq_codes, luts, cand_ids, cand_d, new_ids = map(T, beam_case(
-        5, 33, 20, 8, seed=23))
+        5, 33, 20, m, seed=23))
     codes = pq_codes[new_ids.clamp(0, len(pq_codes) - 1)]
     d = torch.where(new_ids >= 0, pq_adc_batched_ref(codes, luts), torch.inf)
     merged_d = torch.cat([cand_d, d], 1)
@@ -247,6 +251,30 @@ def test_beam_step_matches_unfused_composition():
     assert_bits_equal(ids, torch.gather(torch.cat([cand_ids, new_ids], 1), 1,
                                         order))
     assert_bits_equal(got_d, torch.gather(merged_d, 1, order))
+
+
+def _left_fold_adc(codes, luts):
+    """[nq, n, M] codes x [nq, M, K] LUTs, m folded in order in float32."""
+    nq, n, m = codes.shape
+    rows = np.arange(nq)[:, None]
+    acc = luts[rows, 0, codes[..., 0]]
+    for j in range(1, m):
+        acc = (acc + luts[rows, j, codes[..., j]]).astype(np.float32)
+    return acc
+
+
+@pytest.mark.parametrize("m", [384, 385])
+def test_pq_adc_batched_plain_wide_codes_are_a_left_fold(m):
+    """At M = 384 (and a ragged 385) the plain version folds m in order,
+    by id (+inf where masked) and on gathered rows; jnp's sum is no left
+    fold at this width, so the fold is written out here."""
+    table, luts, ids = adc_ids_case(4, 40, m, seed=m)
+    rows = table[np.clip(ids, 0, len(table) - 1)]
+    want = np.where(ids >= 0, _left_fold_adc(rows, luts), np.inf)
+    assert_bits_equal(pq_adc_batched_ref(T(table), T(luts), T(ids)),
+                      want.astype(np.float32))
+    assert_bits_equal(pq_adc_batched_ref(T(rows), T(luts)),
+                      _left_fold_adc(rows, luts))
 
 
 # --------------------------------------------------------------- rerank_l2
@@ -299,12 +327,17 @@ def test_rerank_l2_equal_rows_are_zero():
 
 
 # --------------------------------------------------------------- pq_encode
-@pytest.mark.parametrize("n,d,m,dtype", [(600, 32, 8, np.float32),
-                                         (300, 128, 32, np.uint8),
-                                         (50, 8, 8, np.float32)])
+@pytest.mark.parametrize("n,d,m,dtype", [
+    (600, 32, 8, np.float32), (300, 128, 32, np.uint8),
+    (50, 8, 8, np.float32),
+    # dsub 3 (DEEP1B's M = 32 over D = 96), 5 and 6: the generic widths
+    *[(n, d, m, t) for n, d, m in [(310, 96, 32), (320, 20, 4),
+                                   (330, 24, 4)]
+      for t in (np.float32, np.uint8)]])
 def test_pq_encode_plain_matches_numpy_encoder(n, d, m, dtype):
     """The plain version of the on-card encoder gives the reference's
-    numpy codes byte for byte, duplicated centroids (ties) included."""
+    numpy codes byte for byte, duplicated centroids (ties) included, at
+    the templated widths and at dsub 3, 5 and 6."""
     rng = np.random.default_rng(n + d)
     x = (rng.integers(0, 40, (n, d)) if dtype == np.uint8
          else rng.normal(size=(n, d))).astype(dtype)
@@ -312,6 +345,44 @@ def test_pq_encode_plain_matches_numpy_encoder(n, d, m, dtype):
     cents[:, 200:] = cents[:, :56]
     want = encode_pq(x, PQCodebook(centroids=cents, dim=d))
     np.testing.assert_array_equal(pq_encode_ref(T(x), T(cents)).numpy(), want)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.uint8])
+def test_pq_encode_plain_folds_wide_dsub_in_order(dtype):
+    """At dsub 24, where numpy's sum is no left fold, the plain version's
+    codes are the first centroid at least distance, the distance a left
+    fold over dsub in float32, duplicated centroids (ties) included."""
+    dsub = 24
+    rng = np.random.default_rng(dsub)
+    m, n = 4, 300
+    x = (rng.integers(0, 40, (n, m * dsub)) if dtype == np.uint8
+         else rng.normal(size=(n, m * dsub))).astype(dtype)
+    cents = (rng.normal(size=(m, 256, dsub)) * 10).astype(np.float32)
+    cents[:, 200:] = cents[:, :56]
+    xs = x.astype(np.float32).reshape(n, m, 1, dsub)
+    sq = (xs - cents[None]) ** 2                             # [n, m, K, ds]
+    acc = sq[..., 0]
+    for s_ in range(1, dsub):
+        acc = (acc + sq[..., s_]).astype(np.float32)
+    np.testing.assert_array_equal(pq_encode_ref(T(x), T(cents)).numpy(),
+                                  acc.argmin(-1).astype(np.uint8))
+
+
+@pytest.mark.parametrize("d,m,k,ok", [(96, 32, 256, True),
+                                       (768, 384, 256, True),
+                                       (904, 8, 256, True),
+                                       (912, 8, 256, True),
+                                       (8, 16, 256, False),
+                                       (96, 32, 257, False),
+                                       (96, 31, 256, False)])
+def test_pq_encode_wrapper_takes_any_dsub(d, m, k, ok):
+    """The kernel's wrapper takes any dsub >= 1 with K <= 256 and
+    D = M * dsub, and refuses the rest before it looks for a card (whether
+    the centroids fit a block's shared memory is the card's to say)."""
+    x = torch.zeros(3, d)
+    cents = torch.zeros(m, k, d // m)
+    with pytest.raises(ValueError, match="CUDA" if ok else "dsub"):
+        pq_encode_cuda(x, cents)
 
 
 # ---------------------------------------------------------- dispatch layer

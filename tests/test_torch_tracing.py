@@ -11,6 +11,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import tracing
 from repro_torch.core.codec import elias_fano as ef
+from repro_torch.core.graph.pq import encode_pq_torch
 from repro_torch.core.index import build_device_index
 from repro_torch.core.search.beam import SearchParams, search
 from repro_torch.core.storage.index_store import CompressedIndexStore
@@ -106,6 +107,29 @@ def test_search_opens_a_round_span_a_round_and_a_sync_a_flag_read(world):
     assert inside(traverse, batch) and inside(rerank, batch)
     assert inside(named(got, "search.lut")[0], batch)
     assert all(inside(r, traverse) for r in named(got, "search.round"))
+    hops = named(got, "search.hop")
+    assert len(hops) == rounds
+    assert all(any(inside(h, r) for r in named(got, "search.round"))
+               for h in hops)
+
+
+def test_hop_and_encode_spans_carry_their_shapes(world):
+    """``search.hop`` records M, the LUT's bytes and the slices the fused
+    hop stages it in; ``pq.encode`` the rows, M and dsub."""
+    _, index, _, queries = world
+    m, k, dsub = index.pq_centroids.shape
+    with profile(activities=[ProfilerActivity.CPU],
+                 record_shapes=True) as prof:
+        search(index, torch.from_numpy(queries), P, "cpu")
+        encode_pq_torch(index.vectors[:50], index.pq_centroids)
+    got = {}
+    for ev in prof.events():
+        got.setdefault(ev.name, []).append(ev.kwinputs)
+    hops = got[tracing.PREFIX + "search.hop"]
+    assert hops and all(h == {"m": m, "lut_bytes": m * k * 4,
+                              "lut_slices": 1} for h in hops)
+    assert got[tracing.PREFIX + "pq.encode"] == [{"rows": 50, "m": m,
+                                                  "dsub": dsub}]
 
 
 def test_served_batch_nests_searches_in_buckets(world):
