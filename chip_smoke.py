@@ -33,7 +33,11 @@ Phases (any fault exits non-zero; there is no CPU fallback):
    the kernel stages (count -1); every start alignment, positions out of
    order and past either end (count -1), the last record on the image's
    last byte, an odd image address, records past 2 GiB) and on the
-   shard's first 4,194,304 lists (one sift1b-shard segment of rows).
+   shard's first 4,194,304 lists (one sift1b-shard segment of rows); and
+   the traversal round's two kernels (round_expand, round_settle) on the
+   shard's EF slots at its search's round 1 and round 9 (nq 1,024, L 200,
+   W 4, R 128, hash bits 15; the plain rounds drive the state there),
+   every state tensor they update compared on copies.
    Every comparison is bit-exact.
 3. small world — the test suite's world (n=1200, dim=32, r=24, pq_m=8,
    32 queries) built by the port, searched on the card and on the CPU:
@@ -117,10 +121,12 @@ Phases (any fault exits non-zero; there is no CPU fallback):
 5. report — per-kernel times at the shard's shapes (CUDA events, median;
    taken before phase 4b, so the storage phase does not hold the shard's
    tables twice; the kernels that read rows by id cycle through fresh id
-   sets), the plain version's and a library call's where one computes the
-   same function, the bound, the torch row gathers those kernels absorbed
-   beside a hand-written gather, the unfused hop's and the re-rank's old
-   compositions (torch gather + the kernel without ids) on the same id
+   sets, the round kernels through 8 copies of the round-9 state, each
+   call a round on from the last), the plain version's and a library
+   call's where one computes the same function, the bound, the torch
+   row gathers those kernels absorbed beside a hand-written gather, the
+   unfused hop's and the re-rank's old compositions (torch gather + the
+   kernel without ids) on the same id
    sets, beam_step's time by survivors, the
    load's old composition (decode_at_torch + one byteplane launch per
    chunk) on the segment huffman_decode is timed on, the single-LUT
@@ -229,7 +235,16 @@ REPLACES = {
     "huffman_decode": "src/repro/core/codec/huffman.py:205",
     # host numpy decode_record, one record at a time
     "ef_record_decode": "src/repro/core/codec/elias_fano.py:151",
+    # no kernel: the plain ops of the reference's round (its while_loop's
+    # step) before its hop, and after it; the port's _round ran the same
+    "round_expand": "src/repro/core/search/beam.py:232",
+    "round_settle": "src/repro/core/search/beam.py:310",
 }
+#: The arguments the round kernels update in place (``kernels/search_round``):
+#: round_expand's expanded, visited, fetched, pq_ct, flag and new_ids;
+#: round_settle's cand_ids .. flag.
+ROUND_OUT = {"round_expand": (5, 7, 8, 9, 10, 11),
+             "round_settle": tuple(range(3, 12))}
 # On no path: absorbed into huffman_decode, which XORs the bases back.
 OFF_PATH = ("byteplane",)
 
@@ -352,6 +367,16 @@ def bits_equal(torch, a, b) -> bool:
     return bool(torch.equal(a, b))
 
 
+def in_place(fn, out):
+    """``fn``, which updates its arguments at positions ``out`` in place,
+    called on copies of them -> the copies, updated."""
+    def call(*args):
+        args = [a.clone() if i in out else a for i, a in enumerate(args)]
+        fn(*args)
+        return tuple(args[i] for i in out)
+    return call
+
+
 def max_abs_err(torch, a, b) -> float:
     if a.dtype != torch.float32:
         return float((a.long() - b.long()).abs().max()) if a.numel() else 0.0
@@ -404,6 +429,7 @@ class Parity:
     inputs; every case must agree bit for bit."""
 
     COLD_SETS = 8     # id sets the by-id kernels cycle through when timed
+    MID_ROUND = 8     # rounds of the shard's traversal before the timed one
 
     def __init__(self, torch, seed):
         from repro_torch.kernels.beam_step import beam_step as bs
@@ -415,6 +441,7 @@ class Parity:
         from repro_torch.kernels.pq_adc import pq_adc as pa
         from repro_torch.kernels.pq_encode import pq_encode as pe
         from repro_torch.kernels.rerank_l2 import rerank_l2 as rr
+        from repro_torch.kernels.search_round import search_round as sr
         self.torch, self.seed = torch, seed
         self.dev = torch.device("cuda")
         self.g = torch.Generator(device=self.dev).manual_seed(seed + 1)
@@ -433,6 +460,14 @@ class Parity:
             "ef_record_decode": (erd.ef_record_decode_cuda,
                                  erd.ef_record_decode_ref),
         }
+        # the round kernels update their state in place: compared on
+        # copies (``in_place``), timed on copies made before the timing
+        self.in_place = {"round_expand": (sr.round_expand_cuda,
+                                          sr.round_expand_ref),
+                         "round_settle": (sr.round_settle_cuda,
+                                          sr.round_settle_ref)}
+        for op, fns in self.in_place.items():
+            self.ops[op] = tuple(in_place(f, ROUND_OUT[op]) for f in fns)
         self.records_s = 0.0     # seconds of ef_record_decode's own cases
         self.err = dict.fromkeys(self.ops, 0.0)
         self.cases = dict.fromkeys(self.ops, 0)
@@ -1085,6 +1120,17 @@ class Parity:
                          self.table_ids(n, nq, k_re, kind))
         self.compare("rerank_l2", "shard gathered, no ids", shard.queries,
                      shard.index.vectors[rr_ids.long()])
+        # the round kernels at the search's round 1 and mid-traversal
+        rounds = self.round_states(shard, luts, (0, self.MID_ROUND))
+        for r, (expand_in, settle_in) in rounds.items():
+            if r != self.MID_ROUND:
+                self.compare("round_expand", f"shard round {r + 1}",
+                             *expand_in)
+                self.compare("round_settle", f"shard round {r + 1}",
+                             *settle_in)
+        self.shard_in["round_expand"], self.shard_in["round_settle"] = \
+            rounds[self.MID_ROUND]
+        del rounds
         for op, args in self.shard_in.items():
             out = self.compare(op, "shard", *args)
             if op == "pq_encode":
@@ -1107,6 +1153,66 @@ class Parity:
                      self.randint(3, nq * W, dtype=torch.int32))
         log(f"parity shard: {dict(self.cases)} cases bit-exact "
             f"({time.time() - t0:.1f} s)")
+
+    def round_states(self, shard, luts, at):
+        """The resident shard's traversal of its nq queries, as ``traverse``
+        starts it and with its rounds' plain bookkeeping around the fused
+        hop -> {r: (round_expand's arguments before round r + 1,
+        round_settle's after its expand and hop)} for each r in ``at``."""
+        torch = self.torch
+        from repro_torch.kernels.search_round import search_round as sr
+        p, idx, dev = shard.p, shard.index, self.dev
+        nq, L, W, R = shard.nq, p.l_size, p.beam_width, p.r_max
+        bits = p.visited_hash_bits
+        entry = idx.medoid.to(torch.int32).expand(nq).contiguous()
+        st = dict(
+            cand_ids=torch.full((nq, L), -1, dtype=torch.int32, device=dev),
+            cand_d=torch.full((nq, L), torch.inf, device=dev),
+            expanded=torch.zeros((nq, L), dtype=torch.bool, device=dev),
+            active=torch.ones(nq, dtype=torch.bool, device=dev),
+            visited=torch.full((nq, (1 << bits) + 1), -1, dtype=torch.int32,
+                               device=dev),
+            **{k: torch.zeros(nq, dtype=torch.int32, device=dev)
+               for k in ("fetched", "pq_ct", "iters", "stab")},
+            pf_iter=torch.full((nq,), -1, dtype=torch.int32, device=dev),
+            prev_top=torch.full((nq, min(p.k + p.rerank_batch, L)), -1,
+                                dtype=torch.int32, device=dev),
+            flag=torch.zeros((), dtype=torch.bool, device=dev),
+            new_ids=torch.empty((nq, W * R), dtype=torch.int32, device=dev))
+        st["cand_ids"][:, 0] = entry
+        st["cand_d"][:, 0] = self.ops["pq_adc_batched"][0](
+            idx.pq_codes, luts, entry[:, None])[:, 0]
+        st["visited"][torch.arange(nq, device=dev),
+                      sr.hash_slots(entry, bits)] = entry
+
+        def expand_in(s):
+            return (idx.ef_slots, R, p.universe, s["cand_ids"], s["cand_d"],
+                    s["expanded"], s["active"], s["visited"], s["fetched"],
+                    s["pq_ct"], s["flag"], s["new_ids"], W, bits)
+
+        def settle_in(top, s):
+            return (*top, s["cand_ids"], s["cand_d"], s["expanded"],
+                    s["iters"], s["stab"], s["pf_iter"], s["prev_top"],
+                    s["active"], s["flag"], W, p.rerank_batch, p.max_iters)
+
+        def copy(s):
+            return {k: v.clone() for k, v in s.items()}
+        out = {}
+        for r in range(max(at) + 1):
+            before = copy(st) if r in at else None
+            sr.round_expand_ref(*expand_in(st))
+            top_ids, top_d, top_i = self.ops["beam_step"][0](
+                idx.pq_codes, luts, st["cand_ids"], st["cand_d"],
+                st["new_ids"])
+            top = (top_ids, top_d, top_i.to(torch.int32))
+            if r in at:
+                out[r] = (expand_in(before), settle_in(top, copy(st)))
+            sr.round_settle_ref(*settle_in(top, st))
+        log(f"round states: rounds {sorted(at)} of the shard's traversal "
+            f"(nq {nq}, L {L}, W {W}, R {R}, hash bits {bits}); rows "
+            f"active before each: " + ", ".join(
+                str(int(e[6].sum())) for e, _ in out.values()))
+        return out
 
 
 # ------------------------------------------------------------- small world
@@ -1326,14 +1432,14 @@ class Shard:
                      / exact64.clamp_min(1)).max())
         check(rel < 1e-6, f"distances vs float64 recompute: rel {rel}")
         self.result = (ids, dists)
-        self.fused_launches = fused
         check(fused["beam_step"] > 0 and off["beam_step"] == 0,
               "beam_step launches")
         check(off["pq_adc_batched"] > fused["pq_adc_batched"] > 0,
               "pq_adc_batched reaches past the entry only under 'off'")
         total = {k: fused[k] + off[k] for k in fused}
-        for name in ("beam_step", "ef_decode", "pq_adc_batched", "rerank_l2"):
+        for name in ("beam_step", "pq_adc_batched", "rerank_l2"):
             check(total[name] > 0, f"{name} never launched on the main path")
+        check(lists_decoded(total) > 0, "no EF list decoded on the main path")
         it = st.iters.float()
         log(f"search: {self.nq} queries, L={self.p.l_size} W="
             f"{self.p.beam_width} k={self.p.k} B={self.p.rerank_batch} "
@@ -1352,7 +1458,8 @@ class Shard:
         self.profile(walls["auto"][0])
         self.profile(walls["off"][0], "off")
         return {name: total[name] for name in
-                ("beam_step", "ef_decode", "pq_adc_batched", "rerank_l2")}
+                ("beam_step", "ef_decode", "pq_adc_batched", "rerank_l2",
+                 "round_expand", "round_settle")}
 
     def profile(self, wall: float, mode: str = "auto"):
         """Device busy time of one search (fused, or unfused for ``off``),
@@ -1546,10 +1653,11 @@ class Storage:
             f"== phase 4 (ids, dists); beam search recall@{shard.p.k} against"
             f" an exhaustive PQ scan + exact re-rank of its 100 best "
             f"(8 queries) {recall:.4f}; launches {launches}")
-        for name in ("beam_step", "ef_decode", "pq_adc_batched",
-                     "rerank_l2", "pq_adc"):
+        for name in ("beam_step", "pq_adc_batched", "rerank_l2", "pq_adc"):
             check(launches[name] > 0, f"{name} never launched on the "
                   f"storage path")
+        check(lists_decoded(launches) > 0,
+              "no EF list decoded on the storage path")
         check(launches["huffman_decode"] == len(vs.sealed),
               f"huffman_decode launched {launches['huffman_decode']} times "
               f"for {len(vs.sealed)} segments")
@@ -1638,6 +1746,12 @@ def add_launches(total: dict, more: dict) -> None:
         total[name] = total.get(name, 0) + n
 
 
+def lists_decoded(launches: dict) -> int:
+    """Launches that decode a round's EF lists: ``ef_decode`` in the
+    plain round, ``round_expand`` in the fused one."""
+    return launches.get("ef_decode", 0) + launches.get("round_expand", 0)
+
+
 def report_line(rep) -> str:
     """The I/O-model metrics of one served batch."""
     looked = rep.cache_hits + rep.graph_ios
@@ -1669,7 +1783,7 @@ class Serve:
             buckets=(8, 32, 1024), account_io=account_io, cache_bytes=cache))
 
     def shard_serve(self) -> dict:
-        from repro_torch.core.search.beam import search_vmapped
+        from repro_torch.core.search.beam import search, search_vmapped
         from repro_torch.kernels import build
         torch, shard = self.torch, self.shard
         q = shard.queries.cpu().numpy()
@@ -1698,9 +1812,15 @@ class Serve:
                   f"serve of {nq} queries without accounting != phase 4's")
             replay = wall - wall_bare
             if nq == shard.nq:
-                check(launched == shard.fused_launches,
+                # the same search issued directly, with the searcher's
+                # parameters (its I/O accounting keeps trace buffers, so
+                # its rounds are the plain, uncaptured ones)
+                build.reset_launches()
+                search(shard.index, shard.queries[:nq], searcher.p)
+                direct = dict(build.LAUNCHES)
+                check(launched == direct,
                       f"the serving tier changed the kernel launches: "
-                      f"{launched} != {shard.fused_launches}")
+                      f"{launched} != {direct}")
                 full = (launched, wall)
             lines.append(f"{nq} queries ({plan}: buckets {rep.buckets}, "
                          f"{rep.n_padded} pad rows) wall {wall:.3f} s, QPS "
@@ -1714,8 +1834,8 @@ class Serve:
             f"buckets (8, 32, 1024), cache {searcher.cfg.cache_bytes} B "
             f"(cache_ratio 0.1% of n x dim); every row == phase 4's fused "
             f"search bit for bit (ids, dists); " + "; ".join(lines))
-        log(f"serve launches (1,024 queries) == one fused search's: "
-            f"{launched}")
+        log(f"serve launches (1,024 queries) == the same search issued "
+            f"directly: {launched}")
         t0 = sync_time(torch)
         ids, _, _ = search_vmapped(shard.index, shard.queries[:8], shard.p)
         t_vm = sync_time(torch, t0)
@@ -1781,8 +1901,9 @@ class Serve:
             parts.append(f"failed {failed}: fan-out "
                          f"{got[2].fanout_frac:.3f}, {report_line(got[2])}")
         launched = dict(build.LAUNCHES)
-        for name in ("beam_step", "ef_decode", "pq_adc_batched", "rerank_l2"):
+        for name in ("beam_step", "pq_adc_batched", "rerank_l2"):
             check(launched[name] > 0, f"sharded serve launched no {name}")
+        check(lists_decoded(launched) > 0, "sharded serve decoded no list")
         log(f"serve (sharded): small world n=1200 in 4 range shards of "
             f"{per}, router 4 centroids a shard, route_frac 0.5; card == "
             f"CPU bit for bit (ids, dists, report) for "
@@ -1901,7 +2022,8 @@ class MeshSearch:
         wall_local = sync_time(torch, t0)
         per_shard = dict(build.LAUNCHES)
         check(all(per_shard[x] >= S for x in
-                  ("beam_step", "ef_decode", "pq_adc_batched", "rerank_l2")),
+                  ("beam_step", "pq_adc_batched", "rerank_l2"))
+              and lists_decoded(per_shard) >= S,
               f"the {S} shard searches launched {per_shard}")
         cand_i = gids.permute(1, 0, 2).reshape(len(q), -1).cpu().numpy()
         cand_d = d.permute(1, 0, 2).reshape(len(q), -1).cpu().numpy()
@@ -2466,9 +2588,10 @@ class Live:
             f"out-neighbours); served ids == idx.search_batch's; no deleted "
             f"id surfaced in any serve")
         self.log_sizing(t_merge)
-        for name in ("beam_step", "ef_decode", "pq_adc_batched", "rerank_l2",
+        for name in ("beam_step", "pq_adc_batched", "rerank_l2",
                      "huffman_decode"):
             check(total[name] > 0, f"{name} never launched on the live path")
+        check(lists_decoded(total) > 0, "no EF list decoded on the live path")
         self.idx = None
         return total
 
@@ -2782,9 +2905,11 @@ class LMServe:
         gen, st = rag.answer(queries, max_new=16)
         t_ans = sync_time(torch, t0)
         launches = dict(build.LAUNCHES)
-        for op in ("beam_step", "ef_decode", "pq_adc_batched", "rerank_l2"):
+        for op in ("beam_step", "pq_adc_batched", "rerank_l2"):
             check(launches.get(op, 0) > 0,
                   f"{op} never launched by RAG retrieval ({launches})")
+        check(lists_decoded(launches) > 0,
+              f"RAG retrieval decoded no EF list ({launches})")
         check(np.array_equal(st["retrieved"], ids), "rag: answer's ids != "
               "retrieve's")
         on_cpu = DeviceIndex(*(None if t is None else t.cpu() for t in idx))
@@ -3660,6 +3785,34 @@ def bounds(torch, op, args):
         b = pos.numel()
         return (int(rec_len[pos].sum()) + b * (8 + 8 + 4)
                 + b * (r_max + 1) * 8), 0
+    if op == "round_expand":   # round_expand.cu's note, 32-byte sectors
+        from repro_torch.kernels.search_round import search_round as sr
+        from repro_torch.kernels.ef_decode.ef_decode import ef_decode_cuda
+        (slots, r_max, universe, cand_ids, cand_d, expanded, active, visited,
+         _, _, _, new_ids, w, bits) = args
+        sel, _ = sr.select(cand_ids, cand_d, sr.unexpanded(
+            cand_ids, expanded, True) & active[:, None], w)
+        lists = torch.sort(sr.ef_lists(ef_decode_cuda, slots, r_max,
+                                       universe, sel), dim=1).values
+        first = torch.ones_like(lists, dtype=torch.bool)
+        first[:, 1:] = lists[:, 1:] != lists[:, :-1]
+        uniq = torch.where(first, lists, -1)
+        seen = torch.gather(visited, 1,
+                            sr.hash_slots(uniq.clamp_min(0), bits)) == uniq
+        probes = int((uniq >= 0).sum())
+        news = int(((uniq >= 0) & ~seen).sum())
+        nq, l_size = cand_ids.shape
+        # the candidate state, the selected slots, a sector a probe and a
+        # new id's write, new_ids, the counters
+        return (nq * l_size * 9 + int((sel >= 0).sum()) * slots.shape[1] * 4
+                + (probes + news) * 32 + new_ids.numel() * 4 + nq * 8), 0
+    if op == "round_settle":   # the hop's output read, the state rewritten
+        cand_ids, prev_top = args[3], args[9]
+        nq, l_size = cand_ids.shape
+        # top_* read, the flags read, the state written; prev_top and the
+        # counters read and written
+        return (nq * l_size * (12 + 1 + 9) + prev_top.numel() * 8
+                + nq * 26), 0
     if op == "huffman_decode":     # the records read, the rows written
         from repro_torch.core.codec.huffman import (decode_at_torch,
                                                     record_bytes_torch)
@@ -3964,10 +4117,20 @@ def time_kernels(torch, parity) -> dict:
     for op, args in parity.shard_in.items():
         kern, plain = parity.ops[op]
         sets = parity.cold.get(op, [args])
+        k_sets = p_sets = sets
+        if op in parity.in_place:
+            # each call on a state of its own, copied before the timing
+            # (at most 3 calls a copy, each a round on from the last)
+            kern, plain = parity.in_place[op]
+            k_sets, p_sets = ([[a.clone() if i in ROUND_OUT[op] else a
+                                for i, a in enumerate(args)]
+                               for _ in range(Parity.COLD_SETS)]
+                              for _ in range(2))
+            sets = k_sets
         lib = library_call(torch, op, args)
         times[op] = dict(
-            ms=cuda_ms(torch, [lambda a=a: kern(*a) for a in sets]),
-            plain_ms=cuda_ms(torch, [lambda a=a: plain(*a) for a in sets],
+            ms=cuda_ms(torch, [lambda a=a: kern(*a) for a in k_sets]),
+            plain_ms=cuda_ms(torch, [lambda a=a: plain(*a) for a in p_sets],
                              reps=5),
             library_ms=None if lib is None else cuda_ms(torch, lib),
             cost=bounds(torch, op, args), sets=len(sets),

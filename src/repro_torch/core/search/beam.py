@@ -14,9 +14,13 @@ The whole query batch advances through one loop; a finished row is frozen
 by masking its updates, so each row's trajectory equals its solo (nq=1)
 run. The reference's two ``lax.while_loop``s are host loops here that stop
 when no row is active (one device-to-host read of that flag per
-iteration). On the card the traversal's rounds after the first replay a
-CUDA graph of one round (``_capture``), so a round costs the host one
-launch, not ~50 op dispatches; ``kernels.build.LAUNCHES`` counts a
+iteration). A round's bookkeeping around the hop is
+``kernels/search_round``'s: on the card two kernel launches
+(``round_expand``, ``round_settle``) where the visited set is the hash
+table over EF slots, else its plain PyTorch version. On the card the
+traversal's rounds after the first replay a CUDA graph of one round
+(``_capture``), so a round costs the host one launch, not three kernel
+launches or ~50 op dispatches; ``kernels.build.LAUNCHES`` counts a
 captured kernel once. Every top-k is a stable ascending sort
 (``stable_smallest``): ``lax.top_k`` breaks ties to the lower index and
 ``torch.topk`` does not.
@@ -30,6 +34,7 @@ table and the ids of the rows it reads, so no row gather precedes it.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -39,6 +44,7 @@ from ...kernels import dispatch
 from ...kernels.beam_step.beam_step import lut_slices, stable_smallest
 from ...kernels.dispatch import (KernelConfig, resolve_backend,
                                  resolve_device)
+from ...kernels.search_round import search_round
 from ..graph.pq import build_lut_torch
 
 
@@ -120,49 +126,24 @@ def resolve_kernels(p: SearchParams, device=None, shapes: dict | None = None,
     return p if k == p.kernels else p._replace(kernels=k)
 
 
-def _hash_slots(ids: torch.Tensor, bits: int) -> torch.Tensor:
-    """Multiplicative hash of non-negative ids into ``2**bits`` slots —
-    the reference's uint32 product, in int64."""
-    h = (ids.to(torch.int64) * 2654435761) & 0xFFFFFFFF
-    return h >> (32 - bits)
-
-
 def _gather_neighbors(index: DeviceIndex, sel_ids: torch.Tensor,
                       p: SearchParams, n: int) -> torch.Tensor:
     """[nq, W] vertex ids -> [nq, W * r_max] neighbour ids (-1 = invalid)."""
-    nq = sel_ids.shape[0]
-    valid_sel = sel_ids >= 0
     if p.use_ef:
-        universe = p.universe or n
         # the kernel reads each slot by id, clipped to the table
-        vals, cnts = dispatch.ef_decode(index.ef_slots, p.r_max, universe,
-                                        p.kernels, ids=sel_ids.reshape(-1))
-        j = torch.arange(p.r_max, device=vals.device)
-        nbrs = torch.where(j[None, :] < cnts[:, None], vals, -1)
-        nbrs = nbrs.reshape(sel_ids.shape + (p.r_max,))
-    else:
-        nbrs = index.neighbors[sel_ids.clamp(0, n - 1)]
-    nbrs = torch.where(valid_sel[..., None], nbrs, -1)
-    return nbrs.reshape(nq, -1)
-
-
-def _last_write_wins(slots: torch.Tensor, ok: torch.Tensor,
-                     pad: int) -> torch.Tensor:
-    """Mask of the ``ok`` entries that own their slot: where several ok
-    entries of a row share a slot, the last one (highest column) — the
-    entry XLA's sequential scatter leaves in place."""
-    key = torch.where(ok, slots, pad)
-    sorted_key, order = torch.sort(key, dim=1, stable=True)
-    last = torch.ones_like(ok)
-    last[:, :-1] = sorted_key[:, 1:] != sorted_key[:, :-1]
-    return torch.zeros_like(ok).scatter_(1, order, last) & ok
+        return search_round.ef_lists(
+            functools.partial(dispatch.ef_decode, cfg=p.kernels),
+            index.ef_slots, p.r_max, p.universe or n, sel_ids)
+    nbrs = index.neighbors[sel_ids.clamp(0, n - 1)]
+    return torch.where((sel_ids >= 0)[..., None], nbrs,
+                       -1).reshape(sel_ids.shape[0], -1)
 
 
 def _any(flag: torch.Tensor) -> bool:
-    """``flag.any()`` read back to the host: the loops' one blocking read
-    a round."""
+    """Whether any entry of ``flag`` is set, read back to the host: the
+    loops' one blocking read a round."""
     with tracing.span("search.sync"):
-        return bool(flag.any())
+        return bool(flag.any() if flag.dim() else flag)
 
 
 def _graphable(luts: torch.Tensor, p: SearchParams) -> bool:
@@ -181,37 +162,37 @@ def _graphable(luts: torch.Tensor, p: SearchParams) -> bool:
                for op, req in ops)
 
 
+def _fused(luts: torch.Tensor, p: SearchParams, n: int) -> bool:
+    """A round's bookkeeping runs as the ``round_expand`` and
+    ``round_settle`` kernels: the round is graphable, its lists are EF
+    slots and its shapes fit a block (``search_round.fits``)."""
+    return p.use_ef and _graphable(luts, p) and search_round.fits(
+        p.l_size, p.beam_width, p.r_max, p.universe or n,
+        p.visited_hash_bits)
+
+
 #: Per device: the memory pool of the traversal's graphs and the last graph
 #: captured into it, held until the next capture has taken the pool over
 #: (the graphs share it one after another, never at once).
 _GRAPHS: dict = {}
 
 
-def _capture(step, state: tuple):
-    """``step`` (state -> next state, its last entry the active rows)
-    captured as one CUDA graph that also writes the next state over
-    ``state``'s tensors and whether any row is active into a flag ->
-    (replay, flag)."""
-    dev = state[0].device
+def _capture(step, dev: torch.device):
+    """``step`` (a round, in place over the traversal's state) captured
+    as one CUDA graph -> its replay."""
     held = _GRAPHS.get(dev)
     pool = held[0] if held else torch.cuda.graph_pool_handle()
     g = torch.cuda.CUDAGraph()
     here = torch.cuda.current_stream(dev)
     side = torch.cuda.Stream(dev)
     side.wait_stream(here)
-    flag = torch.empty((), dtype=torch.bool, device=dev)
     with tracing.span("search.capture"), torch.cuda.stream(side):
         g.capture_begin(pool=pool, capture_error_mode="thread_local")
-        out = step(*state)
-        for old, new in zip(state, out):
-            if new is not old:
-                old.copy_(new)
-        flag.copy_(out[-1].any())
-        del out
+        step()
         g.capture_end()
     here.wait_stream(side)
     _GRAPHS[dev] = (pool, g)
-    return g.replay, flag
+    return g.replay
 
 
 def traverse(index: DeviceIndex, luts: torch.Tensor, p: SearchParams):
@@ -219,10 +200,14 @@ def traverse(index: DeviceIndex, luts: torch.Tensor, p: SearchParams):
     (cand_ids [nq, L], cand_d [nq, L], (iters, fetched, pf_iter, pq, trace,
     hints)).
 
-    On the card (where :func:`_graphable`) the rounds after the
-    first replay one CUDA graph of a round, so the host issues one launch
-    a round instead of the round's ~50 ops; the kernels and their order
-    are the same, so are the results, bit for bit.
+    Each round updates the traversal's state in place
+    (``kernels/search_round``): expand, the hop, settle. On the card with
+    the hash visited set over EF slots and no trace buffers (``_fused``)
+    expand and settle are one kernel launch each around the hop; elsewhere
+    they are their plain PyTorch version. On the card (where
+    :func:`_graphable`) the rounds after the first replay one CUDA graph
+    of a round, so the host issues one launch a round; the kernels and
+    their order are the same, so are the results, bit for bit.
 
     A row with no unexpanded frontier (or out of iterations) is frozen: its
     frontier distances are masked to +inf so it selects nothing, fetches
@@ -245,10 +230,10 @@ def traverse(index: DeviceIndex, luts: torch.Tensor, p: SearchParams):
     m, k = luts.shape[1], luts.shape[2]
     e = W * (p.r_max if p.use_ef else index.neighbors.shape[1])
     # the slices the fused hop's CUDA kernel stages a LUT in (1 elsewhere)
-    hop = {"m": m, "lut_bytes": m * k * 4,
-           "lut_slices": (lut_slices(m, k, e, L)
-                          if luts.is_cuda and p.kernels.beam_step != "off"
-                          else 1)}
+    hop_args = {"m": m, "lut_bytes": m * k * 4,
+                "lut_slices": (lut_slices(m, k, e, L)
+                               if luts.is_cuda and p.kernels.beam_step != "off"
+                               else 1)}
 
     entry = index.medoid.to(torch.int32).expand(nq).contiguous()
     e_d = dispatch.pq_adc_batched(index.pq_codes, luts, p.kernels,
@@ -261,7 +246,8 @@ def traverse(index: DeviceIndex, luts: torch.Tensor, p: SearchParams):
         H = 1 << p.visited_hash_bits
         # column H is the "nowhere" of the reference's mode="drop" scatters
         visited = torch.full((nq, H + 1), -1, dtype=torch.int32, device=dev)
-        visited[rows, _hash_slots(entry, p.visited_hash_bits)] = entry
+        visited[rows, search_round.hash_slots(entry,
+                                              p.visited_hash_bits)] = entry
         expanded = torch.zeros((nq, L), dtype=torch.bool, device=dev)
     else:
         visited = torch.zeros((nq, n + 1), dtype=torch.bool, device=dev)
@@ -273,129 +259,82 @@ def traverse(index: DeviceIndex, luts: torch.Tensor, p: SearchParams):
     prev_top = torch.full((nq, KB), -1, dtype=torch.int32, device=dev)
     trace = torch.full((nq, trace_len, W), -1, dtype=torch.int32, device=dev)
     hints = torch.full((nq, hint_len, W), -1, dtype=torch.int32, device=dev)
+    active = search_round.unexpanded(cand_ids, expanded, use_hash).any(1) \
+        & (iters < p.max_iters)
+    flag = torch.zeros((), dtype=torch.bool, device=dev)  # any row active
+    fused = _fused(luts, p, n)
+    new_ids = torch.empty((nq, e), dtype=torch.int32, device=dev) \
+        if fused else None
 
-    def _unexpanded(cand_ids, expanded):
-        valid = cand_ids >= 0
-        if use_hash:
-            return valid & ~expanded
-        return valid & ~torch.gather(expanded, 1,
-                                     cand_ids.clamp(0, n - 1).long())
-
-    def _frontier(cand_ids, expanded, iters):
-        # (unexpanded slots, active rows) of the candidate lists
-        unexp = _unexpanded(cand_ids, expanded)
-        return unexp, unexp.any(1) & (iters < p.max_iters)
-
-    def _record(buf, ids, iters):
+    def _record(buf, ids):
         # the reference's trace.at[rows, iters].set(ids, mode="drop")
         ok = iters < buf.shape[1]
         buf[rows[ok], iters[ok].long()] = ids[ok]
 
-    def _round(cand_ids, cand_d, expanded, iters, stab, pf_iter, prev_top,
-               unexp, active):
-        # one expansion of every active row; fetched, pq_ct, visited and
-        # the trace buffers are updated in place
-        with tracing.span("search.round"):
-            frontier_d = torch.where(unexp & active[:, None], cand_d,
-                                     torch.inf)
-            sel_d, sel_slot = stable_smallest(frontier_d, W)    # [nq, W]
-            sel_ids = torch.where(torch.isfinite(sel_d),
-                                  torch.gather(cand_ids, 1, sel_slot), -1)
-            if use_hash:
-                expanded = expanded.scatter(
-                    1, sel_slot, torch.gather(expanded, 1, sel_slot)
-                    | (sel_ids >= 0))
-            else:
-                expanded[rows[:, None], torch.where(sel_ids >= 0, sel_ids,
-                                                    n).long()] = True
-            fetched.add_((sel_ids >= 0).sum(1, dtype=torch.int32))
+    def _hop(new_ids):
+        with tracing.span("search.hop", hop_args):
+            if p.kernels.beam_step != "off":
+                # the fused hop reads the code rows of new_ids itself
+                return dispatch.beam_step(index.pq_codes, luts, cand_ids,
+                                          cand_d, new_ids, p.kernels)
+            # the ADC reads the code rows of new_ids; +inf where masked
+            new_d = dispatch.pq_adc_batched(index.pq_codes, luts, p.kernels,
+                                            ids=new_ids)
+            top_d, top_i = stable_smallest(torch.cat([cand_d, new_d], 1), L)
+            return (torch.gather(torch.cat([cand_ids, new_ids], 1), 1,
+                                 top_i), top_d, top_i)
+
+    def _plain_round():
+        # one expansion of every active row, the state updated in place
+        with tracing.span("search.round", {"fused": 0}):
+            new_ids, sel_ids = search_round.expand(
+                lambda ids: _gather_neighbors(index, ids, p, n), cand_ids,
+                cand_d, expanded, active, visited, fetched, pq_ct, W,
+                p.visited_hash_bits)
             if p.trace_fetches:
-                _record(trace, sel_ids, iters)
+                _record(trace, sel_ids)
             if p.trace_hints:
                 # Provisional frontier for round r+1, read BEFORE this
                 # round's neighbours merge: the top-W unexpanded survivors
                 # of the list.
-                prov_d = torch.where(_unexpanded(cand_ids, expanded)
-                                     & active[:, None], cand_d, torch.inf)
-                prov_v, prov_slot = stable_smallest(prov_d, W)
-                prov_ids = torch.where(
-                    torch.isfinite(prov_v),
-                    torch.gather(cand_ids, 1, prov_slot), -1)
-                _record(hints, prov_ids, iters)
+                _record(hints, search_round.select(
+                    cand_ids, cand_d,
+                    search_round.unexpanded(cand_ids, expanded, use_hash)
+                    & active[:, None], W)[0])
+            search_round.round_settle_ref(
+                *_hop(new_ids), cand_ids, cand_d, expanded, iters, stab,
+                pf_iter, prev_top, active, flag, W, p.rerank_batch,
+                p.max_iters, by_slot=use_hash)
 
-            nbrs = _gather_neighbors(index, sel_ids, p, n)        # [nq, W*R]
-            # Dedupe within the round: sort + first occurrence.
-            sorted_n = torch.sort(nbrs, dim=1).values
-            first = torch.ones_like(sorted_n, dtype=torch.bool)
-            first[:, 1:] = sorted_n[:, 1:] != sorted_n[:, :-1]
-            uniq = torch.where(first, sorted_n, -1)
-            if use_hash:
-                slots = _hash_slots(uniq.clamp_min(0), p.visited_hash_bits)
-                seen = torch.gather(visited, 1, slots) == uniq
-                ok = (uniq >= 0) & ~seen
-                win = _last_write_wins(slots, ok, H)
-                visited.scatter_(1, torch.where(win, slots, H),
-                                 torch.where(win, uniq, -1))
-            else:
-                seen = torch.gather(visited, 1, uniq.clamp(0, n - 1).long())
-                ok = (uniq >= 0) & ~seen
-                visited.scatter_(1, torch.where(ok, uniq, n).long(),
-                                 torch.ones_like(ok))
-            new_ids = torch.where(ok, uniq, -1)
-            pq_ct.add_(ok.sum(1, dtype=torch.int32))
+    def _fused_round():
+        # the same round: its bookkeeping two kernel launches around the hop
+        with tracing.span("search.round", {"fused": 1}):
+            search_round.round_expand_cuda(
+                index.ef_slots, p.r_max, p.universe or n, cand_ids, cand_d,
+                expanded, active, visited, fetched, pq_ct, flag, new_ids, W,
+                p.visited_hash_bits)
+            top_ids, top_d, top_i = _hop(new_ids)
+            search_round.round_settle_cuda(
+                top_ids, top_d, top_i.to(torch.int32), cand_ids, cand_d,
+                expanded, iters, stab, pf_iter, prev_top, active, flag, W,
+                p.rerank_batch, p.max_iters)
 
-            with tracing.span("search.hop", hop):
-                if p.kernels.beam_step != "off":
-                    # the fused hop reads the code rows of new_ids itself
-                    cand_ids, cand_d, top_i = dispatch.beam_step(
-                        index.pq_codes, luts, cand_ids, cand_d, new_ids,
-                        p.kernels)
-                    top_i = top_i.long()
-                else:
-                    # the ADC reads the code rows of new_ids; +inf where
-                    # masked
-                    new_d = dispatch.pq_adc_batched(index.pq_codes, luts,
-                                                    p.kernels, ids=new_ids)
-                    merged_ids = torch.cat([cand_ids, new_ids], 1)
-                    cand_d, top_i = stable_smallest(
-                        torch.cat([cand_d, new_d], 1), L)
-                    cand_ids = torch.gather(merged_ids, 1, top_i)
-            if use_hash:
-                merged_exp = torch.cat([expanded, torch.zeros_like(ok)], 1)
-                expanded = torch.gather(merged_exp, 1, top_i)
-
-            # §3.4 stability: top-(K+B) id set unchanged across expansions.
-            top_now = torch.sort(cand_ids[:, :KB], dim=1).values
-            same = (top_now == prev_top).all(1)
-            stab = torch.where(active, torch.where(same, stab + W, 0),
-                               stab)
-            trigger = active & (stab >= p.rerank_batch) & (pf_iter < 0)
-            pf_iter = torch.where(trigger, iters + 1, pf_iter)
-            iters = iters + active.to(torch.int32)
-            prev_top = torch.where(active[:, None], top_now, prev_top)
-            unexp, active = _frontier(cand_ids, expanded, iters)
-        return (cand_ids, cand_d, expanded, iters, stab, pf_iter, prev_top,
-                unexp, active)
-
-    unexp, active = _frontier(cand_ids, expanded, iters)
-    state = (cand_ids, cand_d, expanded, iters, stab, pf_iter, prev_top,
-             unexp, active)
+    step = _fused_round if fused else _plain_round
     go = _any(active)
     if go and _graphable(luts, p):
         # the first round runs as it is written, the rest replay its
         # capture: one graph launch and one flag read a round
-        state = _round(*state)
-        go = _any(state[-1])
+        step()
+        go = _any(flag)
         if go:
-            replay, flag = _capture(_round, state)
+            replay = _capture(step, dev)
             while go:
-                with tracing.span("search.round"):
+                with tracing.span("search.round", {"fused": int(fused)}):
                     replay()
                 go = _any(flag)
     while go:
-        state = _round(*state)
-        go = _any(state[-1])
-    cand_ids, cand_d, _, iters, _, pf_iter = state[:6]
+        step()
+        go = _any(flag)
 
     return cand_ids, cand_d, (iters, fetched, pf_iter, pq_ct + 1, trace,
                               hints)

@@ -28,14 +28,14 @@
 //   pq_adc_batched.cu.
 // - Top-L by filter and merge. Every merged entry has a 64-bit key: the
 //   order-preserving bits of its distance (-0 folded onto +0) above its
-//   merged index, so keys are distinct and ascend in (distance, index)
-//   order. A new key can enter the top L only if it is smaller than the
-//   key of candidate L-1 (the L candidate keys beat every larger one), so
-//   the block keeps only those, compacts them with a warp ballot and a
-//   prefix over the warps, bitonic-sorts the survivors (a power of two >=
-//   their count) and merges them with the candidate half: each entry's
-//   output position is its index in its own run plus its rank in the
-//   other (a binary search).
+//   merged index (keys.cuh's sort_key), so keys are distinct and ascend
+//   in (distance, index) order. A new key can enter the top L only if it
+//   is smaller than the key of candidate L-1 (the L candidate keys beat
+//   every larger one), so the block keeps only those, compacts them with
+//   a warp ballot and a prefix over the warps, bitonic-sorts the
+//   survivors (a power of two >= their count) and merges them with the
+//   candidate half: each entry's output position is its index in its own
+//   run plus its rank in the other (a binary search).
 // - Any input. The search always passes a candidate half sorted by
 //   (distance, index) — the previous hop's output or the [e_d, inf, ...]
 //   start — but a caller may not: a vote over adjacent pairs finds an
@@ -54,24 +54,19 @@
 #include <stdint.h>
 
 #include "adc_rows.cuh"
+#include "keys.cuh"
 
 namespace {
 
 using adc::fold_row;
 using adc::kRowBytes;
 using adc::load_row;
+using keys::sort_key;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 2;       // rows a thread holds in registers per group
 constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ unsigned long long sort_key(float d, unsigned t) {
-  unsigned u = __float_as_uint(d);
-  if (u == 0x80000000u) u = 0u;  // -0 ties with +0, as a float compare does
-  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-  return ((unsigned long long)u << 32) | t;
-}
 
 // Ascending bitonic sort of keys[0..p), p a power of two; ends synced.
 __device__ void bitonic(unsigned long long* keys, int p) {

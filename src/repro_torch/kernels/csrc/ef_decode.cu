@@ -22,27 +22,16 @@
 // shuffles into a per-warp prefix. Each lane then decodes the ranks
 // r = lane + 32 i directly: a binary search over the prefix finds the word
 // that holds rank r, __fns the bit in it, and the low part comes from the
-// buffer. Every lane is busy and the stores are coalesced.
+// buffer. Every lane is busy and the stores are coalesced. The warp's
+// staging and decode are ef_rows.cuh's, shared with round_expand.cu.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "ef_rows.cuh"
 
 namespace {
 
 constexpr int kWarps = 8;
-constexpr int kBatch = 4;  // words a lane has in flight per pass
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ unsigned low_part(const uint32_t* low, int r,
-                                             int l, int lw) {
-  if (l == 0) return 0u;
-  const int start = r * l;
-  const int word = start >> 5;
-  const int off = start & 31;
-  const unsigned g0 = low[min(word, lw - 1)];
-  const unsigned g1 = low[min(word + 1, lw - 1)];
-  const unsigned v = (g0 >> off) | (off ? (g1 << (32 - off)) : 0u);
-  return l >= 32 ? v : (v & ((1u << l) - 1u));
-}
 
 __global__ void __launch_bounds__(kWarps * 32)
 ef_decode_kernel(const uint32_t* __restrict__ slots,
@@ -61,52 +50,12 @@ ef_decode_kernel(const uint32_t* __restrict__ slots,
     row = ids[s];
     row = row < 0 ? 0 : (row >= n_slots ? n_slots - 1 : row);
   }
-  const uint32_t* slot = slots + row * words;
-  for (int i0 = 0; i0 < words; i0 += 32 * kBatch) {
-    uint32_t v[kBatch];
-#pragma unroll
-    for (int j = 0; j < kBatch; ++j) {
-      const int i = i0 + 32 * j + lane;
-      v[j] = i < words ? __ldg(slot + i) : 0u;
-    }
-#pragma unroll
-    for (int j = 0; j < kBatch; ++j) {
-      const int i = i0 + 32 * j + lane;
-      if (i < words) buf[i] = v[j];
-    }
-  }
-  __syncwarp();
-  const uint32_t* low = buf + 1;
-  const uint32_t* high = buf + 1 + lw;
+  const unsigned running = ef::stage(slots + row * words, words, lw, hb,
+                                     buf, pre, lane);
   if (lane == 0) counts[s] = (int32_t)buf[0];
-  unsigned running = 0;
-  for (int base = 0; base < hb; base += 32) {
-    const int j = base + lane;
-    unsigned incl = j < hb ? __popc(high[j]) : 0u;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const unsigned y = __shfl_up_sync(kFull, incl, o);
-      if (lane >= o) incl += y;
-    }
-    if (j < hb) pre[j] = running + incl;
-    running += __shfl_sync(kFull, incl, 31);
-  }
-  __syncwarp();
   int32_t* out = nbrs + s * r_max;
-  for (int r = lane; r < r_max; r += 32) {
-    unsigned pos = 0;  // a rank the bitmap lacks decodes from position 0
-    if ((unsigned)r < running) {
-      int lo = 0, hi = hb - 1;  // first word whose prefix exceeds r
-      while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (pre[mid] > (unsigned)r) hi = mid; else lo = mid + 1;
-      }
-      const unsigned before = lo ? pre[lo - 1] : 0u;
-      pos = 32u * lo + __fns(high[lo], 0u, (int)((unsigned)r - before) + 1);
-    }
-    const unsigned hi_part = pos - (unsigned)r;
-    out[r] = (int32_t)((hi_part << l) | low_part(low, r, l, lw));
-  }
+  for (int r = lane; r < r_max; r += 32)
+    out[r] = ef::value(buf, pre, running, r, l, lw, hb);
 }
 
 }  // namespace

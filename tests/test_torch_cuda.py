@@ -295,6 +295,106 @@ def ef_ids(n_slots):
                      n_slots + 93, 1], dtype=np.int32)
 
 
+def round_case(nq, l_size, w, r_max, universe, m, bits, seed, n=4096,
+               pool=None, ties=False, max_iters=64, k_b=20):
+    """A traversal part-way through and the tables its rounds read ->
+    (ef_slots [n, words] int32, pq_codes [n, M] uint8, luts [nq, M, 256]
+    f32, state: a dict of numpy arrays in ``kernels/search_round``'s
+    names).
+
+    Lists hold 0 to r_max ids (every 7th full) drawn from ``pool`` ids of
+    the universe, so a small pool puts the same id in several of a round's
+    lists; each row's hash table of 2^bits slots holds a sample of the
+    pool at its slots (ids already visited) and random ids elsewhere;
+    with ``ties`` the candidate distances take four values, zeros of both
+    signs and -inf among them. Rows start active or frozen, every 5th one
+    round from ``max_iters``; ``prev_top`` is the sorted top-``k_b`` of
+    the list in half the rows."""
+    from repro_torch.kernels.search_round.search_round import hash_slots
+    rng = np.random.default_rng(seed)
+    ids_pool = rng.choice(universe, size=min(pool or universe, universe,
+                                             1 << 20), replace=False)
+    counts = rng.integers(0, min(r_max, len(ids_pool)) + 1, n)
+    counts[::7] = min(r_max, len(ids_pool))
+    slots = np.stack([encode_slot(np.sort(rng.choice(ids_pool, c,
+                                                     replace=False))
+                                  .astype(np.uint64), r_max, universe)
+                      for c in counts]).view(np.int32)
+    pq_codes = rng.integers(0, 256, (n, m), dtype=np.uint8)
+    luts = rng.normal(size=(nq, m, 256)).astype(np.float32) ** 2
+    if ties:
+        luts = np.round(luts)
+    cand_ids = np.full((nq, l_size), -1, np.int32)
+    cand_d = np.full((nq, l_size), np.inf, np.float32)
+    for q in range(nq):
+        nv = int(rng.integers(1, l_size + 1))
+        cand_ids[q, :nv] = rng.choice(n, nv, replace=False)
+        d = (rng.integers(0, 4, nv) / 2 if ties
+             else rng.random(nv) * 10).astype(np.float32)
+        if ties:
+            d[d == 0] *= rng.choice(np.float32([1, -1]), int((d == 0).sum()))
+            if q % 3 == 0:
+                d[0] = -np.inf
+        cand_d[q, :nv] = np.sort(d)
+    expanded = (rng.random((nq, l_size)) < 0.5) & (cand_ids >= 0)
+    h = 1 << bits
+    visited = np.full((nq, h + 1), -1, np.int32)
+    for q in range(nq):
+        seen = rng.choice(ids_pool, min(len(ids_pool), 64), replace=False)
+        visited[q, hash_slots(torch.from_numpy(seen), bits).numpy()] = seen
+        visited[q, rng.integers(0, h, 16)] = rng.integers(0, universe, 16)
+    iters = rng.integers(0, max_iters, nq).astype(np.int32)
+    iters[::5] = max_iters - 1
+    kb = min(k_b, l_size)
+    prev_top = np.sort(cand_ids[:, :kb], 1)
+    prev_top[1::2] = rng.integers(-1, n, (nq // 2, kb))
+    state = dict(
+        cand_ids=cand_ids, cand_d=cand_d, expanded=expanded,
+        active=rng.random(nq) < 0.85, visited=visited,
+        fetched=rng.integers(0, 100, nq).astype(np.int32),
+        pq_ct=rng.integers(0, 100, nq).astype(np.int32), iters=iters,
+        stab=rng.integers(0, 12, nq).astype(np.int32),
+        pf_iter=np.where(rng.random(nq) < 0.5, -1,
+                         rng.integers(0, max_iters, nq)).astype(np.int32),
+        prev_top=prev_top.astype(np.int32), flag=np.array(True))
+    return slots, pq_codes, luts, state
+
+
+#: Rounds of the traversal's bookkeeping: the small world's shapes; the
+#: same id in several lists (a pool of 40 ids); a table of 8 slots (many
+#: new ids to a slot); ties of distances, -0/+0 and -inf; rows that reach
+#: max_iters; W = 1 and r_max = 1; the most a block takes (L 1024, W * R
+#: 1024); and the serve cells' shapes (W 4, R 128, L 200, hash bits 15,
+#: the EF slots of a 31.25M-vector shard) at nq 1, 8, 32 and 1,024, M 32
+#: and M 384.
+ROUND_CASES = {
+    "world": dict(nq=9, l_size=32, w=4, r_max=12, universe=400, m=4,
+                  bits=10, seed=1, n=400),
+    "shared-ids": dict(nq=8, l_size=48, w=4, r_max=24, universe=5000, m=8,
+                       bits=10, seed=2, pool=40),
+    "one-slot-table": dict(nq=8, l_size=48, w=4, r_max=24, universe=5000,
+                           m=8, bits=3, seed=3, pool=200),
+    "ties": dict(nq=12, l_size=64, w=4, r_max=16, universe=5000, m=8,
+                 bits=10, seed=4, ties=True),
+    "max-iters": dict(nq=32, l_size=32, w=4, r_max=12, universe=400, m=4,
+                      bits=10, seed=5, n=400, max_iters=3),
+    "w1-r1": dict(nq=5, l_size=7, w=1, r_max=1, universe=300, m=4, bits=6,
+                  seed=6, n=300),
+    "block-max": dict(nq=4, l_size=1024, w=8, r_max=128, universe=100000,
+                      m=8, bits=12, seed=7, pool=3000, k_b=1024),
+    "serve-1": dict(nq=1, l_size=200, w=4, r_max=128, universe=31_250_000,
+                    m=32, bits=15, seed=8),
+    "serve-8": dict(nq=8, l_size=200, w=4, r_max=128, universe=31_250_000,
+                    m=32, bits=15, seed=9),
+    "serve-32": dict(nq=32, l_size=200, w=4, r_max=128,
+                     universe=31_250_000, m=32, bits=15, seed=10),
+    "serve-1024": dict(nq=1024, l_size=200, w=4, r_max=128,
+                       universe=31_250_000, m=32, bits=15, seed=11),
+    "serve-1024-m384": dict(nq=1024, l_size=200, w=4, r_max=128,
+                            universe=31_250_000, m=384, bits=15, seed=12),
+}
+
+
 def _bits(x):
     x = x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
     return x.view(np.int32) if x.dtype == np.float32 else x
@@ -694,6 +794,129 @@ def test_pq_encode_kernel_refuses_what_a_block_cannot_hold(cuda):
     assert (pq_encode_cuda(x, cents) == 0).all()
 
 
+def _round_state(state, dev):
+    return {k: torch.from_numpy(np.array(v)).to(dev)
+            for k, v in state.items()}
+
+
+def _same_state(got, want, stage):
+    for name in want:
+        np.testing.assert_array_equal(_bits(got[name]), _bits(want[name]),
+                                      err_msg=f"{stage}: {name}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(ROUND_CASES))
+def test_round_kernels_match_the_plain_round(cuda, case):
+    """Rounds of ``round_expand`` + the fused hop + ``round_settle`` on
+    the card equal the plain round (``round_expand_ref``, ``beam_step_ref``,
+    ``round_settle_ref``) on the CPU, every state tensor bit for bit after
+    each half."""
+    from repro_torch.kernels.search_round import search_round as sr
+    c = ROUND_CASES[case]
+    slots, codes, luts, state = round_case(**c)
+    w, r_max, universe, bits = c["w"], c["r_max"], c["universe"], c["bits"]
+    max_iters, e = c.get("max_iters", 64), c["w"] * c["r_max"]
+    cpu, card = _round_state(state, "cpu"), _round_state(state, cuda)
+    tables = {"cpu": _on("cpu", slots, codes, luts),
+              "card": _on(cuda, slots, codes, luts)}
+    build.reset_launches()
+    for r in range(3):
+        for st, dev, expand in ((cpu, "cpu", sr.round_expand_ref),
+                                (card, cuda, sr.round_expand_cuda)):
+            st["new_ids"] = torch.empty((c["nq"], e), dtype=torch.int32,
+                                        device=dev)
+            ef = tables["cpu" if dev == "cpu" else "card"][0]
+            expand(ef, r_max, universe, st["cand_ids"], st["cand_d"],
+                   st["expanded"], st["active"], st["visited"],
+                   st["fetched"], st["pq_ct"], st["flag"], st["new_ids"], w,
+                   bits)
+        _same_state(card, cpu, f"round {r} expand")
+        hops = {}
+        for st, key, hop in ((cpu, "cpu", beam_step_ref),
+                             (card, "card", beam_step_cuda)):
+            _, pq, lt = tables[key]
+            hops[key] = hop(pq, lt, st["cand_ids"], st["cand_d"],
+                            st["new_ids"])
+        for a, b in zip(hops["card"], hops["cpu"]):
+            assert_bits_equal(a, b)
+        for st, key, settle in ((cpu, "cpu", sr.round_settle_ref),
+                                (card, "card", sr.round_settle_cuda)):
+            settle(*hops[key], st["cand_ids"], st["cand_d"], st["expanded"],
+                   st["iters"], st["stab"], st["pf_iter"], st["prev_top"],
+                   st["active"], st["flag"], w, 10, max_iters)
+        _same_state(card, cpu, f"round {r} settle")
+    assert build.LAUNCHES["round_expand"] == build.LAUNCHES[
+        "round_settle"] == 3
+    assert build.LAUNCHES["ef_decode"] == 0
+
+
+@pytest.mark.cuda
+def test_round_kernels_state_the_shapes_they_take(cuda):
+    """``search_round.fits`` is the kernel library's answer: a block holds
+    every serve shape and the largest round (L 1,024, W * r_max 1,024), and
+    refuses a wider one, which the wrapper then will not launch."""
+    from repro_torch.kernels.search_round import search_round as sr
+    for l_size, w, r_max, universe, bits in (
+            (200, 4, 128, 31_250_000, 15), (1, 1, 1, 300, 1),
+            (1024, 8, 128, 100_000, 12), (1024, 32, 32, 2 ** 31 - 1, 30)):
+        assert sr.fits(l_size, w, r_max, universe, bits)
+    for l_size, w, r_max, universe, bits in (
+            (1025, 4, 128, 31_250_000, 15), (200, 8, 129, 31_250_000, 15),
+            (200, 33, 4, 400, 10), (200, 4, 128, 31_250_000, 31),
+            (200, 4, 128, 31_250_000, 0)):
+        assert not sr.fits(l_size, w, r_max, universe, bits), (l_size, w)
+    c = dict(ROUND_CASES["world"], w=40)
+    slots, _, _, state = round_case(**c)
+    st = {k: torch.from_numpy(np.array(v)).cuda() for k, v in state.items()}
+    with pytest.raises(ValueError, match="round_expand takes no round"):
+        sr.round_expand_cuda(
+            torch.from_numpy(slots).cuda(), c["r_max"], c["universe"],
+            st["cand_ids"], st["cand_d"], st["expanded"], st["active"],
+            st["visited"], st["fetched"], st["pq_ct"], st["flag"],
+            torch.empty((c["nq"], c["w"] * c["r_max"]), dtype=torch.int32,
+                        device="cuda"), c["w"], c["bits"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("beam_step", ["auto", "off"])
+@pytest.mark.parametrize("nq,max_iters", [(1, 64), (8, 64), (32, 5),
+                                          (1024, 64), (1024, 7)])
+def test_fused_traversal_matches_the_plain_one(cuda, nq, max_iters,
+                                               beam_step):
+    """The traversal on the card with its rounds' bookkeeping in the two
+    kernels (round 1 launched, the rest a replayed graph) equals the plain
+    traversal on the CPU: rows that finish at different rounds, and, at a
+    small max_iters, rows stopped by it."""
+    from repro_torch.core.graph.pq import build_lut_torch
+    from repro_torch.core.search import beam
+    vecs = make_vector_dataset("prop-like", 600, 16, seed=4)
+    on_cpu, _, _ = build_device_index(vecs, r=16, l_build=32, pq_m=4,
+                                      seed=4, device="cpu")
+    on_card = DeviceIndex(*(None if t is None else t.to(cuda)
+                            for t in on_cpu))
+    p = beam.check_kernels(SearchParams(
+        l_size=48, beam_width=4, k=10, rerank_batch=10, r_max=16,
+        universe=600, max_iters=max_iters, visited_hash_bits=9,
+        kernels=KernelConfig(beam_step=beam_step)))
+    q = torch.from_numpy(make_queries("prop-like", nq, 16))
+    luts = build_lut_torch(q, on_cpu.pq_centroids)
+    plain = beam.traverse(on_cpu, luts, p)
+    build.reset_launches()
+    graphed = beam.traverse(on_card, luts.to(cuda), p)
+    iters = graphed[2][0]
+    assert int(iters.max()) > 2
+    if max_iters < 64:
+        assert bool((iters == max_iters).any())
+    if nq >= 32 and max_iters == 64:
+        assert int(iters.min()) < int(iters.max())
+    assert build.LAUNCHES["round_expand"] == build.LAUNCHES[
+        "round_settle"] == 2
+    assert build.LAUNCHES["ef_decode"] == 0
+    for a, b in zip(graphed[:2] + graphed[2], plain[:2] + plain[2]):
+        assert_bits_equal(a, b)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("bits", [0, 10])
 @pytest.mark.parametrize("beam_step", ["auto", "off"])
@@ -717,6 +940,9 @@ def test_search_on_card_matches_cpu(cuda, beam_step, bits):
     assert build.LAUNCHES["ef_decode"] > 0 and build.LAUNCHES["rerank_l2"] > 0
     assert (build.LAUNCHES["beam_step"] > 0) == fused
     assert build.LAUNCHES["pq_adc_batched"] > (0 if fused else 1)
+    # trace buffers keep the round's bookkeeping plain
+    assert build.LAUNCHES["round_expand"] == build.LAUNCHES[
+        "round_settle"] == 0
     want = search(on_cpu, queries, p, device="cpu")
     assert_bits_equal(got[0], want[0])
     assert_bits_equal(got[1], want[1])
@@ -728,8 +954,9 @@ def test_search_on_card_matches_cpu(cuda, beam_step, bits):
 @pytest.mark.parametrize("beam_step", ["auto", "off"])
 def test_traversal_replays_a_captured_round_bit_for_bit(cuda, beam_step):
     """With the hash visited set and no trace buffers, the rounds after
-    the first replay a CUDA graph of one round: every output equals the
-    plain loop's on the CPU, bit for bit."""
+    the first replay a CUDA graph of one round, their bookkeeping the
+    round_expand and round_settle kernels: every output equals the plain
+    loop's on the CPU, bit for bit."""
     from repro_torch.core.graph.pq import build_lut_torch
     from repro_torch.core.search import beam
     vecs = make_vector_dataset("prop-like", 400, 16, seed=3)
@@ -746,9 +973,15 @@ def test_traversal_replays_a_captured_round_bit_for_bit(cuda, beam_step):
     plain = beam.traverse(on_cpu, luts, p)
     dev = on_card.pq_codes.device
     held = beam._GRAPHS.get(dev)
+    build.reset_launches()
     graphed = beam.traverse(on_card, luts.to(dev), p)
     assert beam._GRAPHS.get(dev) is not held
     assert int(graphed[2][0].max()) > 2
+    # the bookkeeping is the two round kernels, in round 1 and once in
+    # the captured round; the graph holds no EF decode of its own
+    assert build.LAUNCHES["round_expand"] == build.LAUNCHES[
+        "round_settle"] == 2
+    assert build.LAUNCHES["ef_decode"] == 0
     for a, b in zip(graphed[:2] + graphed[2], plain[:2] + plain[2]):
         assert_bits_equal(a, b)
 

@@ -23,13 +23,22 @@ from repro.core.search import beam as ref_beam
 from repro.data.synthetic import make_queries, make_vector_dataset
 from repro.kernels.dispatch import KernelConfig as JKernelConfig
 
+from repro_torch import tracing
 from repro_torch.core.index import device_index_from_numpy, recall_at_k
-from repro_torch.core.search.beam import (SearchParams, search,
-                                          search_candidates, search_one)
+from repro_torch.core.search import beam
+from repro_torch.core.search.beam import (SearchParams, check_kernels,
+                                          search, search_candidates,
+                                          search_one)
 from repro_torch.core.graph.pq import build_lut_torch
+from repro_torch.kernels import build
+from repro_torch.kernels.beam_step.beam_step import beam_step_ref
 from repro_torch.kernels.dispatch import KernelConfig
+from repro_torch.kernels.ef_decode.ef_decode import ef_decode_ref
+from repro_torch.kernels.pq_adc.pq_adc import pq_adc_batched_ref
+from repro_torch.kernels.search_round import search_round as sr
 
 from conftest import build_search_world
+from test_torch_cuda import ROUND_CASES, round_case
 
 GOLDEN_RECALL_AT_10 = 0.971875     # tests/test_search.py's pinned golden
 JREF = JKernelConfig("ref", "ref", "ref", "ref", "off")
@@ -188,3 +197,188 @@ def test_search_refuses_an_index_on_another_device(world):
     _, index, _, queries, _ = world
     with pytest.raises(ValueError, match="index lives on"):
         search(index, queries[:2], _port("auto"), device="meta")
+
+
+def _plain_traverse(index, luts, p):
+    """The traversal as a loop of the factored plain round: the kernels'
+    plain versions (``round_expand_ref`` with the hash set, ``expand``
+    with the dense one), the hop's (``beam_step_ref``) and
+    ``round_settle_ref``, until the flag falls."""
+    n, nq = index.pq_codes.shape[0], luts.shape[0]
+    L, W, bits = p.l_size, p.beam_width, p.visited_hash_bits
+    universe = p.universe or n
+    rows = torch.arange(nq)
+    entry = index.medoid.to(torch.int32).expand(nq).contiguous()
+    cand_ids = torch.full((nq, L), -1, dtype=torch.int32)
+    cand_ids[:, 0] = entry
+    cand_d = torch.full((nq, L), torch.inf)
+    cand_d[:, 0] = pq_adc_batched_ref(index.pq_codes, luts,
+                                      entry[:, None])[:, 0]
+    if bits:
+        visited = torch.full((nq, (1 << bits) + 1), -1, dtype=torch.int32)
+        visited[rows, sr.hash_slots(entry, bits)] = entry
+        expanded = torch.zeros((nq, L), dtype=torch.bool)
+    else:
+        visited = torch.zeros((nq, n + 1), dtype=torch.bool)
+        visited[rows, entry.long()] = True
+        expanded = torch.zeros((nq, n + 1), dtype=torch.bool)
+    iters, fetched, pq_ct, stab = torch.zeros((4, nq),
+                                              dtype=torch.int32).unbind(0)
+    pf_iter = torch.full((nq,), -1, dtype=torch.int32)
+    prev_top = torch.full((nq, min(p.k + p.rerank_batch, L)), -1,
+                          dtype=torch.int32)
+    active = sr.unexpanded(cand_ids, expanded, bits > 0).any(1)
+    flag = active.any()
+    new_ids = torch.empty((nq, W * p.r_max), dtype=torch.int32)
+    while bool(flag):
+        if bits:
+            sr.round_expand_ref(index.ef_slots, p.r_max, universe, cand_ids,
+                                cand_d, expanded, active, visited, fetched,
+                                pq_ct, flag, new_ids, W, bits)
+        else:
+            new_ids, _ = sr.expand(
+                lambda ids: sr.ef_lists(ef_decode_ref, index.ef_slots,
+                                        p.r_max, universe, ids),
+                cand_ids, cand_d, expanded, active, visited, fetched, pq_ct,
+                W, bits)
+        sr.round_settle_ref(
+            *beam_step_ref(index.pq_codes, luts, cand_ids, cand_d, new_ids),
+            cand_ids, cand_d, expanded, iters, stab, pf_iter, prev_top,
+            active, flag, W, p.rerank_batch, p.max_iters, by_slot=bits > 0)
+    return cand_ids, cand_d, (iters, fetched, pf_iter, pq_ct + 1)
+
+
+@pytest.mark.parametrize("bits", [0, 10], ids=["dense", "hashed"])
+@pytest.mark.parametrize("nq", [1, 7, 32])
+def test_plain_round_matches_the_reference_traversal(world, nq, bits):
+    """A loop of the factored plain round equals the reference's
+    ``traverse`` on the same LUTs (ids and counters exactly; distances
+    to rtol 1e-6, the reference folding its sums inside its loop's
+    compiled body), and the port's ``traverse`` on the CPU bit for bit."""
+    ref_idx, index, _, queries, _ = world
+    kw = dict(visited_hash_bits=bits, trace_fetches=False,
+              trace_hints=False)
+    p = check_kernels(_port("auto", **kw))
+    luts = build_lut_torch(torch.from_numpy(queries[:nq]),
+                           index.pq_centroids)
+    got = _plain_traverse(index, luts, p)
+    want = ref_beam.traverse(
+        ref_idx, jnp.asarray(luts.numpy()),
+        ref_beam.SearchParams(**{**BASE, **kw}, kernels=JREF))
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]),
+                               rtol=1e-6)
+    for name, a, b in zip(("iters", "fetched", "pf_iter", "pq"), got[2],
+                          want[2]):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b),
+                                      err_msg=name)
+    port = beam.traverse(index, luts, p)
+    for a, b in zip(got[:2] + got[2], port[:2] + port[2][:4]):
+        np.testing.assert_array_equal(a.numpy().view(np.int32),
+                                      b.numpy().view(np.int32))
+
+
+def test_the_fused_round_is_chosen_from_what_traverse_observes(
+        world, monkeypatch):
+    """The CPU always runs the plain round. On a card (a round that can be
+    captured) the round's bookkeeping is the two kernels only with the
+    hash set over EF slots, no trace buffers and shapes the kernel library
+    says a block holds (``round_expand_fits``, asked with the round's EF
+    slot layout; stood in for here, where no library is built)."""
+    from repro_torch.core.codec.elias_fano import slot_layout
+    _, index, _, queries, _ = world
+    n = index.pq_codes.shape[0]
+    luts = build_lut_torch(torch.from_numpy(queries[:2]), index.pq_centroids)
+    serve = check_kernels(SearchParams(l_size=200, beam_width=4, k=10,
+                                       rerank_batch=10, r_max=128,
+                                       universe=31_250_000,
+                                       visited_hash_bits=15))
+    asked, says = [], {"fits": 1}
+
+    def library(name, entry, *args):
+        asked.append((name, entry) + args)
+        return says["fits"]
+    monkeypatch.setattr(sr, "query", library)
+    for bits in (0, 15):
+        assert not beam._fused(luts, serve._replace(visited_hash_bits=bits),
+                               n)
+    assert not asked
+    on_card = beam._graphable
+    monkeypatch.setattr(beam, "_graphable", lambda luts, p: on_card(
+        luts.to("meta"), p) or not (p.trace_fetches or p.trace_hints
+                                    or p.visited_hash_bits <= 0))
+    assert beam._fused(luts, serve, n)
+    _, _, hb, words = slot_layout(128, 31_250_000)
+    assert asked == [("round_expand", "round_expand_fits", 200, 4, 128,
+                      words, hb, 15)]
+    assert beam._fused(luts, serve._replace(l_size=1024, beam_width=8), n)
+    assert beam._fused(luts, serve._replace(universe=0), n)
+    _, _, hb, words = slot_layout(128, n)
+    assert asked[-1][2:] == (200, 4, 128, words, hb, 15)
+    del asked[:]
+    for other in (dict(use_ef=False), dict(visited_hash_bits=0),
+                  dict(trace_fetches=True), dict(trace_hints=True)):
+        assert not beam._fused(luts, serve._replace(**other), n), other
+    assert not asked
+    says["fits"] = 0
+    for other in ({}, dict(l_size=1025), dict(beam_width=33, r_max=4)):
+        assert not beam._fused(luts, serve._replace(**other), n), other
+    assert len(asked) == 3
+
+
+def test_round_span_says_which_round_ran(world):
+    """Each ``search.round`` span carries ``fused``: 0 for the plain round,
+    which the CPU runs whatever the visited set, and no round kernel
+    launches."""
+    from torch.profiler import ProfilerActivity, profile
+    _, index, _, queries, _ = world
+    build.reset_launches()
+    for bits in (0, 10):
+        p = _port("auto", visited_hash_bits=bits, trace_fetches=False,
+                  trace_hints=False)
+        with profile(activities=[ProfilerActivity.CPU],
+                     record_shapes=True) as prof:
+            _, _, st = search(index, torch.from_numpy(queries[:5]), p,
+                              device="cpu")
+        rounds = [ev.kwinputs for ev in prof.events()
+                  if ev.name == tracing.PREFIX + "search.round"]
+        assert len(rounds) == int(st.iters.max()) > 1
+        assert all(r == {"fused": 0} for r in rounds)
+    assert build.LAUNCHES["round_expand"] == build.LAUNCHES[
+        "round_settle"] == 0
+
+
+def test_round_kernels_refuse_cpu_tensors_and_shapes_they_do_not_take():
+    """The wrappers launch on the card or raise: a CPU tensor, new ids of
+    another width, a hash table of another size (a round wider than a block
+    is the card test ``test_round_kernels_state_the_shapes_they_take``)."""
+    c = ROUND_CASES["world"]
+    slots, _, _, state = round_case(**c)
+    st = {k: torch.from_numpy(np.array(v))
+          for k, v in state.items()}
+    new_ids = torch.empty((c["nq"], c["w"] * c["r_max"]), dtype=torch.int32)
+
+    def expand(w=c["w"], bits=c["bits"], visited=st["visited"]):
+        sr.round_expand_cuda(torch.from_numpy(slots), c["r_max"],
+                             c["universe"], st["cand_ids"], st["cand_d"],
+                             st["expanded"], st["active"], visited,
+                             st["fetched"], st["pq_ct"], st["flag"],
+                             new_ids if w == c["w"] else new_ids[:, :1], w,
+                             bits)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        expand()
+    with pytest.raises(ValueError, match="do not fit"):
+        expand(w=40)
+    with pytest.raises(ValueError, match="do not fit"):
+        expand(visited=st["visited"][:, :-1])
+    top = (st["cand_ids"], st["cand_d"],
+           torch.zeros_like(st["cand_ids"]))
+    rest = (st["cand_ids"], st["cand_d"], st["expanded"], st["iters"],
+            st["stab"], st["pf_iter"])
+    with pytest.raises(ValueError, match="one CUDA device"):
+        sr.round_settle_cuda(*top, *rest, st["prev_top"], st["active"],
+                             st["flag"], c["w"], 10, 64)
+    with pytest.raises(TypeError, match="round_settle takes"):
+        sr.round_settle_cuda(top[0], top[1], top[2].long(), *rest,
+                             st["prev_top"], st["active"], st["flag"],
+                             c["w"], 10, 64)
