@@ -40,25 +40,26 @@ Phases (any fault exits non-zero; there is no CPU fallback):
    every state tensor they update compared on copies.
    Every comparison is bit-exact.
 3. small world — the test suite's world (n=1200, dim=32, r=24, pq_m=8,
-   32 queries) built by the port, searched on the card and on the CPU:
-   identical ids, distances and SearchStats; with the dense visited set,
-   recall@10 >= 0.971875 (the reference suite's golden).
+   32 queries) built by the port, searched on the card and on the CPU
+   with the dense and the hashed visited set: identical ids, distances
+   and SearchStats; with the dense set, recall@10 >= 0.971875 (the
+   reference suite's golden).
 4. shard — n sift-like vectors drawn on the card, a seeded random R=128
    graph (Vamana's start graph: a Vamana build of 31M vertices is out of
    reach of the host-side builder, so recall is not checked here), its EF
    slots, PQ codes encoded on the card, the medoid. Every slot is decoded
    by the ef_decode kernel and compared with the source graph; 1,024
-   queries are searched fused and unfused (beam_step="off") under the
-   production SearchParams; the two agree bit for bit and the distances
-   equal a recompute. Launch counts are read around each path. A profile
-   of each search fails the run if a torch row gather still reads the
-   shard's PQ codes or vectors (every kernel reads its rows by id).
+   queries are searched twice under the production SearchParams; the
+   distances equal a recompute. Launch counts are read around each
+   search. A profile of the search fails the run if a torch row gather
+   still reads the shard's PQ codes or vectors (every kernel reads its
+   rows by id).
 4c. serve — the serving tier (serve/ann.py) on the resident shard:
    BatchedSearcher with buckets (8, 32, 1024), fetch traces replayed
    through an LRU of 0.1% of n x dim bytes, serving the 1,024 queries, the
    first 1,000 (a padded bucket) and 37 (ragged buckets). Every row equals
-   phase 4's fused search bit for bit and the 1,024-query serve launches
-   exactly one fused search's kernels; search_vmapped of 8 queries equals
+   phase 4's search bit for bit and the 1,024-query serve launches
+   exactly one search's kernels; search_vmapped of 8 queries equals
    search. Prints the I/O-model report (graph/vector I/Os, cache hits,
    modeled mean and p99 latency), the wall, QPS, the replay's share of
    the wall and the card's busy share of a profiled serve. Then the
@@ -123,23 +124,18 @@ Phases (any fault exits non-zero; there is no CPU fallback):
    tables twice; the kernels that read rows by id cycle through fresh id
    sets, the round kernels through 8 copies of the round-9 state, each
    call a round on from the last), the plain version's and a library
-   call's where one computes the same function, the bound, the torch
-   row gathers those kernels absorbed beside a hand-written gather, the
-   unfused hop's and the re-rank's old compositions (torch gather + the
-   kernel without ids) on the same id
-   sets, beam_step's time by survivors, the
+   call's where one computes the same function, the bound, the ADC's and
+   the re-rank's old compositions (torch gather + the kernel without ids)
+   on the same id sets, beam_step's time by survivors, the
    load's old composition (decode_at_torch + one byteplane launch per
    chunk) on the segment huffman_decode is timed on, the single-LUT
    kernel on all-equal codes of the shard's scan (its LUT reads
    conflict-free) beside the time of reading the same 1 GB of codes once,
    ef_record_decode on one segment of rows of each restore cell's store
-   (4,194,304 and 1,398,101 records: the kernel, its plain version, the
-   bound, and the op's wall with its one read-back; its own cases and
-   yardstick add ~4 s to the run, printed in the last line),
-   then the autotune of the fused hop against the unfused one at the hop
-   shapes of phases 4, 4c and 4d, written under the card's key to
-   build/autotune_cache.json and resolved from there (a search under the
-   resolved config equals phase 4's rows), then the contract's last lines.
+   (4,194,304 and 1,398,101 records: the op as decode_batch calls it,
+   its one read-back included, its plain version, the bound, and the op's
+   host wall; its own cases and yardstick add ~4 s to the run, printed in
+   the last line), then the contract's last lines.
 6. lm — after 4d, with the shard and the live index freed: the LM serving
    path (models/*, serve/engine.py, serve/rag.py). The ten archs'
    reduce_configs in float32, card == CPU (prefill logits, greedy tokens);
@@ -319,9 +315,6 @@ def main() -> int:
     add_launches(launches, Admission(torch, shard, args).run())   # 4f
     added["4f"] = time.time() - t1
     times = time_kernels(torch, parity)                    # 5. report: times
-    t1 = time.time()
-    autotune_hops(torch, shard, parity)                    # 5. autotune
-    added["autotune"] = time.time() - t1
     storage = Storage(torch, shard, args)                  # 4b. storage
     launches.update(storage.run())
     launches["pq_encode"] = shard.build_launches["pq_encode"]
@@ -346,8 +339,8 @@ def main() -> int:
 
     log(f"chip_smoke: whole run {time.time() - t0:.1f} s, of which phase 4e "
         f"{added['4e']:.1f} s, 4f {added['4f']:.1f} s, ef_record_decode's "
-        f"own cases and yardstick {parity.records_s:.1f} s, the autotune "
-        f"{added['autotune']:.1f} s, 6 (lm) {added['6']:.1f} s, 7 (train) "
+        f"own cases and yardstick {parity.records_s:.1f} s, 6 (lm) "
+        f"{added['6']:.1f} s, 7 (train) "
         f"{added['7']:.1f} s, 8 (mesh) {added['8']:.1f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -970,8 +963,7 @@ class Parity:
         """The index store's records of the shard's first 4,194,304 lists
         (one sift1b-shard segment of rows; deep1b-shard's segment is its
         first 1,398,101), encoded as the store encodes them, for the
-        shard's comparison (with the width given: the kernel's device work
-        without its read-back) and the report's times."""
+        shard's comparison and the report's times."""
         from repro_torch.core.codec import elias_fano as ef
         torch, t0 = self.torch, time.time()
         rows = min(shard.n, RESTORE_ROWS["sift1b-shard"])
@@ -988,7 +980,7 @@ class Parity:
         torch.cumsum(ln[:-1], 0, out=st[1:])
         self.records = (buf, st, ln.to(torch.int32))
         self.shard_in["ef_record_decode"] = (
-            *self.records, torch.arange(rows, device=self.dev), shard.R)
+            *self.records, torch.arange(rows, device=self.dev))
         self.records_s += time.time() - t0
 
     def segment(self, vecs):
@@ -1222,7 +1214,6 @@ def small_world(torch, seed: int) -> None:
     from repro_torch.core.search.beam import DeviceIndex, SearchParams, search
     from repro_torch.data.synthetic import (ground_truth, make_queries,
                                             make_vector_dataset)
-    from repro_torch.kernels.dispatch import KernelConfig
     t0 = time.time()
     vecs = make_vector_dataset("prop-like", n=1200, dim=32,
                                seed=seed).astype(np.float32)
@@ -1234,30 +1225,28 @@ def small_world(torch, seed: int) -> None:
     check(verify_index_slots(index, 24, 1200), "small world EF slots lossy")
     t_build = time.time() - t0
     recalls = {}
-    for beam_step in ("auto", "off"):
-        for bits in (0, 10):
-            p = SearchParams(l_size=48, beam_width=4, k=10, rerank_batch=10,
-                             r_max=24, universe=1200, max_iters=128,
-                             visited_hash_bits=bits, trace_fetches=True,
-                             trace_hints=True,
-                             kernels=KernelConfig(beam_step=beam_step))
-            got = search(index, queries, p)
-            want = search(cpu_index, queries, p, device="cpu")
-            tag = f"beam_step={beam_step} hash_bits={bits}"
-            check(bits_equal(torch, got[0].cpu(), want[0]), f"{tag}: ids")
-            check(bits_equal(torch, got[1].cpu(), want[1]), f"{tag}: dists")
-            for f, a, b in zip(want[2]._fields, got[2], want[2]):
-                check(bits_equal(torch, a.cpu(), b), f"{tag}: stats.{f}")
-            rec = recall_at_k(got[0], gt, 10)
-            recalls[tag] = rec
-            # the golden is the dense visited set's; 2^10 hashed slots
-            # evict and re-visit, a different (cheaper) search
-            check(bits or rec >= GOLDEN_RECALL_AT_10,
-                  f"{tag}: recall@10 {rec} < {GOLDEN_RECALL_AT_10}")
+    for bits in (0, 10):
+        p = SearchParams(l_size=48, beam_width=4, k=10, rerank_batch=10,
+                         r_max=24, universe=1200, max_iters=128,
+                         visited_hash_bits=bits, trace_fetches=True,
+                         trace_hints=True)
+        got = search(index, queries, p)
+        want = search(cpu_index, queries, p, device="cpu")
+        tag = f"hash_bits={bits}"
+        check(bits_equal(torch, got[0].cpu(), want[0]), f"{tag}: ids")
+        check(bits_equal(torch, got[1].cpu(), want[1]), f"{tag}: dists")
+        for f, a, b in zip(want[2]._fields, got[2], want[2]):
+            check(bits_equal(torch, a.cpu(), b), f"{tag}: stats.{f}")
+        rec = recall_at_k(got[0], gt, 10)
+        recalls[tag] = rec
+        # the golden is the dense visited set's; 2^10 hashed slots
+        # evict and re-visit, a different (cheaper) search
+        check(bits or rec >= GOLDEN_RECALL_AT_10,
+              f"{tag}: recall@10 {rec} < {GOLDEN_RECALL_AT_10}")
     log(f"small world: n=1200 dim=32 r=24 pq_m=8 32 queries; card == CPU "
-        f"bit for bit (ids, dists, every SearchStats field) for fused/off x "
-        f"dense/hashed; recall@10 {recalls} (golden {GOLDEN_RECALL_AT_10} "
-        f"for dense); build {t_build:.1f} s, total {time.time() - t0:.1f} s")
+        f"bit for bit (ids, dists, every SearchStats field) for dense/hashed;"
+        f" recall@10 {recalls} (golden {GOLDEN_RECALL_AT_10} for dense); "
+        f"build {t_build:.1f} s, total {time.time() - t0:.1f} s")
 
 
 # ------------------------------------------------------------------- shard
@@ -1396,30 +1385,27 @@ class Shard:
 
     def search(self):
         from repro_torch.kernels import build, dispatch
-        from repro_torch.kernels.dispatch import KernelConfig
         from repro_torch.core.search.beam import search
         torch = self.torch
         q = self.queries
         search(self.index, q, self.p)                        # warm-up
         torch.cuda.synchronize()
-        runs = {"auto": [], "off": []}
-        for mode in ("auto", "off", "off", "auto"):
-            p = self.p._replace(kernels=KernelConfig(beam_step=mode))
+        runs = []
+        for _ in range(2):
             build.reset_launches()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            ids, dists, stats = search(self.index, q, p)
+            ids, dists, stats = search(self.index, q, self.p)
             torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            runs[mode].append((ids, dists, stats, wall,
-                               dict(build.LAUNCHES)))
-        (ids, dists, st, wall, fused), (ids2, d2, st2, wall2, off) = \
-            runs["auto"][0], runs["off"][0]
-        walls = {m: [r[3] for r in rs] for m, rs in runs.items()}
+            runs.append((ids, dists, stats, time.perf_counter() - t0,
+                         dict(build.LAUNCHES)))
+        (ids, dists, st, _, launches), (ids2, d2, st2, _, launches2) = runs
+        walls = [r[3] for r in runs]
         check(bits_equal(torch, ids, ids2) and bits_equal(torch, dists, d2),
-              "fused and unfused searches disagree")
+              "two searches of the same queries disagree")
         for f, a, b in zip(st._fields, st, st2):
-            check(bits_equal(torch, a, b), f"fused/unfused stats.{f}")
+            check(bits_equal(torch, a, b), f"repeated search stats.{f}")
+        check(launches == launches2, "two searches launch differently")
         live = ids >= 0
         check(bool(live.all()), "a query returned fewer than k results")
         recompute = dispatch.get_impl("rerank_l2", "ref")(
@@ -1432,52 +1418,41 @@ class Shard:
                      / exact64.clamp_min(1)).max())
         check(rel < 1e-6, f"distances vs float64 recompute: rel {rel}")
         self.result = (ids, dists)
-        check(fused["beam_step"] > 0 and off["beam_step"] == 0,
-              "beam_step launches")
-        check(off["pq_adc_batched"] > fused["pq_adc_batched"] > 0,
-              "pq_adc_batched reaches past the entry only under 'off'")
-        total = {k: fused[k] + off[k] for k in fused}
         for name in ("beam_step", "pq_adc_batched", "rerank_l2"):
-            check(total[name] > 0, f"{name} never launched on the main path")
-        check(lists_decoded(total) > 0, "no EF list decoded on the main path")
+            check(launches[name] > 0, f"{name} never launched on the main "
+                  f"path")
+        check(lists_decoded(launches) > 0,
+              "no EF list decoded on the main path")
         it = st.iters.float()
         log(f"search: {self.nq} queries, L={self.p.l_size} W="
             f"{self.p.beam_width} k={self.p.k} B={self.p.rerank_batch} "
-            f"max_iters={self.p.max_iters} hash_bits=15; wall s (run order "
-            f"fused, off, off, fused, after a warm-up): fused "
-            f"{walls['auto']}, off {walls['off']}; QPS fused "
-            f"{[self.nq / w for w in walls['auto']]}, off "
-            f"{[self.nq / w for w in walls['off']]}; hops mean "
-            f"{float(it.mean()):.2f} max {int(it.max())}; lists fetched "
+            f"max_iters={self.p.max_iters} hash_bits=15; wall s (after a "
+            f"warm-up) {walls}; QPS {[self.nq / w for w in walls]}; hops "
+            f"mean {float(it.mean()):.2f} max {int(it.max())}; lists fetched "
             f"mean {float(st.lists_fetched.float().mean()):.1f}; rerank "
             f"batches mean {float(st.rerank_batches.float().mean()):.2f}; "
-            f"fused == off bit for bit (ids, dists, stats); dists == "
+            f"both runs equal bit for bit (ids, dists, stats); dists == "
             f"recompute (max rel vs float64 {rel:.2e})")
-        log(f"launches fused: {fused}")
-        log(f"launches off: {off}")
-        self.profile(walls["auto"][0])
-        self.profile(walls["off"][0], "off")
-        return {name: total[name] for name in
+        log(f"launches: {launches}")
+        self.profile(walls[0])
+        return {name: launches[name] for name in
                 ("beam_step", "ef_decode", "pq_adc_batched", "rerank_l2",
                  "round_expand", "round_settle")}
 
-    def profile(self, wall: float, mode: str = "auto"):
-        """Device busy time of one search (fused, or unfused for ``off``),
-        by kernel (torch.profiler over CUPTI), against the search's wall
-        time; and the device time of the row-gather ops by input shape."""
+    def profile(self, wall: float):
+        """Device busy time of one search, by kernel (torch.profiler over
+        CUPTI), against the search's wall time; and the device time of the
+        row-gather ops by input shape."""
         from torch.profiler import ProfilerActivity, profile
         from repro_torch.core.search.beam import search
-        from repro_torch.kernels.dispatch import KernelConfig
         torch = self.torch
-        p = self.p._replace(kernels=KernelConfig(beam_step=mode))
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA],
                      record_shapes=True) as prof:
             t0 = time.perf_counter()
-            search(self.index, self.queries, p)
+            search(self.index, self.queries, self.p)
             torch.cuda.synchronize()
             prof_wall = time.perf_counter() - t0
-        tag = "fused" if mode == "auto" else "unfused"
         n = self.index.pq_codes.shape[0]
         tables = ([n, self.M], [n, self.D])
         reads = [(ev.key, ev.input_shapes, ev.count) for ev in
@@ -1485,11 +1460,11 @@ class Shard:
                  if ev.key in ("aten::index", "aten::index_select")
                  and any(list(sh) in tables for sh in ev.input_shapes
                          if isinstance(sh, (list, tuple)))]
-        check(not reads, f"{tag} search: a torch row gather still reads the "
+        check(not reads, f"search: a torch row gather still reads the "
               f"shard's PQ codes or vectors: {reads}")
-        log(f"profile ({tag} search): no aten::index reads pq_codes {tables[0]}"
+        log(f"profile (search): no aten::index reads pq_codes {tables[0]}"
             f" or vectors {tables[1]}")
-        if not device_busy(torch, prof, f"{tag} search", wall, prof_wall):
+        if not device_busy(torch, prof, "search", wall, prof_wall):
             return
         ops = sorted(
             ((ev.device_time_total, ev.count, ev.key, ev.input_shapes)
@@ -1497,7 +1472,7 @@ class Shard:
              if ev.key in ("aten::index", "aten::gather",
                            "aten::index_select", "aten::take")
              and ev.device_time_total > 0), reverse=True)
-        log(f"profile ({tag} search): row-gather ops by input shape: "
+        log(f"profile (search): row-gather ops by input shape: "
             + "; ".join(f"{k} {sh} x{c} {us / 1e3:.2f} ms"
                         for us, c, k, sh in ops[:8]))
 
@@ -3781,8 +3756,9 @@ def bounds(torch, op, args):
         packed, base = args
         return 2 * packed.numel() + base.numel(), packed.numel()
     if op == "ef_record_decode":   # records and table entries read once
-        buf, rec_start, rec_len, pos, r_max = args
+        buf, rec_start, rec_len, pos = args
         b = pos.numel()
+        r_max = int(buf[rec_start[pos]].max())     # a record's first byte
         return (int(rec_len[pos].sum()) + b * (8 + 8 + 4)
                 + b * (r_max + 1) * 8), 0
     if op == "round_expand":   # round_expand.cu's note, 32-byte sectors
@@ -3846,47 +3822,12 @@ def library_call(torch, op, args):
     return None
 
 
-def absorbed_gathers(torch, parity) -> None:
-    """The row gathers the search issued in front of beam_step (and the
-    unfused hop's pq_adc_batched), ef_decode and rerank_l2 before those
-    kernels read their rows by id: the torch index op as the search issued
-    it (ids clamped), and the plainest hand-written gather of the same
-    rows, on the same cycled id sets (rows cold)."""
-    from repro_torch.kernels.row_gather import row_gather_cuda
-    parts = []
-    for op, name, tcol, col in (("beam_step", "pq_codes", 0, 4),
-                                ("ef_decode", "ef_slots", 0, 3),
-                                ("rerank_l2", "vectors", 1, 2)):
-        sets = parity.cold[op]
-        table = sets[0][tcol]
-        n, row_bytes = table.shape[0], table[0].numel() * table.element_size()
-        ids = [a[col].reshape(-1).clamp(0, n - 1) for a in sets]
-        check(bits_equal(torch, row_gather_cuda(table, ids[0]),
-                         table[ids[0]]), f"row_gather of {name} != index")
-        t_index = cuda_ms(torch, [lambda i=i: table[i] for i in ids])
-        t_hand = cuda_ms(torch, [lambda i=i: row_gather_cuda(table, i)
-                                 for i in ids])
-        nbytes = ids[0].numel() * (4 + 2 * row_bytes)
-        vec = 16 if row_bytes % 16 == 0 else 4
-        parts.append(
-            f"{name}[ids] ({ids[0].numel()} rows of {row_bytes} B): torch "
-            f"index {t_index:.4f} ms, hand-written {vec}-byte-load gather "
-            f"{t_hand:.4f} ms, bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms"
-            f" ({nbytes / 1e6:.1f} MB)")
-    log(f"absorbed gathers (no longer issued by either search; each timed "
-        f"cycling {Parity.COLD_SETS} fresh id sets, rows cold): "
-        + "; ".join(parts))
-
-
 def old_compositions(torch, parity) -> None:
-    """The unfused hop's ADC and the re-rank's distances as the search ran
-    them before pq_adc_batched and rerank_l2 read their rows by id: the
-    torch index op, then the kernel without ids (and the hop's mask),
-    beside the kernel by id and the kernel without ids on rows gathered
-    beforehand, each cycling the same fresh id sets (rows cold); and the
-    floor of one launch: the smallest hand-written kernel (row_gather of
-    one row)."""
-    from repro_torch.kernels.row_gather import row_gather_cuda
+    """The hop's ADC and the re-rank's distances as the search ran them
+    before pq_adc_batched and rerank_l2 read their rows by id: the torch
+    index op, then the kernel without ids (and the hop's mask), beside the
+    kernel by id and the kernel without ids on rows gathered beforehand,
+    each cycling the same fresh id sets (rows cold)."""
     adc = parity.ops["pq_adc_batched"][0]
     rr = parity.ops["rerank_l2"][0]
 
@@ -3916,12 +3857,8 @@ def old_compositions(torch, parity) -> None:
                      f"{t_old:.4f} ms, kernel by id {t_new:.4f} ms, kernel "
                      f"without ids on rows gathered beforehand {t_pre:.4f} "
                      f"ms")
-    q, vectors, ids = parity.cold["rerank_l2"][0]
-    one = ids.reshape(-1)[:1]
-    floor = cuda_ms(torch, lambda: row_gather_cuda(vectors, one))
     log(f"old compositions (cycling {Parity.COLD_SETS} fresh id sets, rows "
-        f"cold): " + "; ".join(parts) + f"; launch floor (row_gather of one "
-        f"{vectors.shape[1]}-byte row) {floor:.4f} ms")
+        f"cold): " + "; ".join(parts))
 
 
 def beam_step_regimes(torch, parity) -> None:
@@ -4071,33 +4008,32 @@ def pq_adc_yardsticks(torch, parity) -> None:
 def record_yardstick(torch, parity) -> None:
     """ef_record_decode on one segment of rows of each restore cell's
     store (the shard's records: sift1b-shard 4,194,304, deep1b-shard its
-    first 1,398,101): the kernel's device time with the width given (no
-    read-back), the plain version's (its passes and reads included), the
-    byte bound, and the wall of the op as decode_batch calls it (the
-    largest count read back, then the launch; host clock around a
-    synchronised call, median of 5)."""
+    first 1,398,101), as decode_batch calls it (the largest count read
+    back, then the launch): its device time between events, the plain
+    version's (its passes and reads included), the byte bound, and its
+    wall (host clock around a synchronised call, median of 5)."""
     t0 = time.time()
     kern, plain = parity.ops["ef_record_decode"]
     buf, st, ln = parity.records
     parts = []
     for name, rows in RESTORE_ROWS.items():
         pos = torch.arange(min(rows, st.numel()), device=parity.dev)
-        args = (buf, st, ln, pos, Shard.R)
+        args = (buf, st, ln, pos)
         ms = cuda_ms(torch, lambda: kern(*args))
         plain_ms = cuda_ms(torch, lambda: plain(*args), reps=3)
         walls = []
         for _ in range(5):
             w0 = sync_time(torch)
-            kern(buf, st, ln, pos)
+            kern(*args)
             walls.append(sync_time(torch, w0) * 1e3)
         nbytes = bounds(torch, "ef_record_decode", args)[0]
         bound = nbytes / HBM_BYTES_PER_S * 1e3
         parts.append(
             f"{name} segment ({pos.numel()} records, {nbytes / 1e9:.3f} GB):"
-            f" kernel {ms:.4f} ms ({100 * bound / ms:.1f}% of the bound, "
-            f"{nbytes / ms / 1e6:.1f} GB/s), bound {bound:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, op wall with its read-back "
-            f"{sorted(walls)[2]:.4f} ms")
+            f" op {ms:.4f} ms with its read-back ({100 * bound / ms:.1f}% of"
+            f" the bound, {nbytes / ms / 1e6:.1f} GB/s), bound {bound:.4f} "
+            f"ms, plain {plain_ms:.4f} ms, op wall {sorted(walls)[2]:.4f} "
+            f"ms")
     parity.records_s += time.time() - t0
     log("ef_record_decode yardstick: " + "; ".join(parts))
 
@@ -4106,7 +4042,6 @@ def time_kernels(torch, parity) -> dict:
     """Per-kernel device times on the shard's inputs, taken before the
     storage phase; then the parity inputs, which hold the shard's tables,
     are let go."""
-    absorbed_gathers(torch, parity)
     old_compositions(torch, parity)
     beam_step_regimes(torch, parity)
     wide_pq_timings(torch, parity)
@@ -4138,88 +4073,6 @@ def time_kernels(torch, parity) -> dict:
     parity.shard_in = parity.cold = parity.beam_regimes = None
     parity.segments = parity.records = None
     return times
-
-
-def autotune_hops(torch, shard, parity) -> None:
-    """Phase 5's autotune: the fused hop (the beam_step kernel) against
-    the unfused hop (pq_adc_batched by id, then the stable top-L merge:
-    beam.py's "off" branch) at the hop shapes of phases 4 and 4c (nq 1024,
-    32, 8) and 4d (nq 256), E = W x R ids (60% kept) into the shard's
-    codes, L = 200; device medians cycling fresh id sets. Recorded under
-    the card's key in build/autotune_cache.json; then auto-tuned resolves
-    from that file per bucket and a search under the resolved config
-    equals phase 4's rows."""
-    from repro_torch.core.search.beam import resolve_kernels, search
-    from repro_torch.kernels import dispatch
-    from repro_torch.kernels.autotune import (AutotuneCache, bucket_key,
-                                              platform_key)
-    from repro_torch.kernels.beam_step.beam_step import stable_smallest
-    from repro_torch.kernels.dispatch import KernelConfig
-    cfg = KernelConfig()
-
-    def fused(codes, luts, cand_ids, cand_d, new_ids):
-        return dispatch.beam_step(codes, luts, cand_ids, cand_d, new_ids,
-                                  cfg)[:2]
-
-    def unfused(codes, luts, cand_ids, cand_d, new_ids):
-        new_d = dispatch.pq_adc_batched(codes, luts, cfg, ids=new_ids)
-        merged = torch.cat([cand_ids, new_ids], 1)
-        d, top = stable_smallest(torch.cat([cand_d, new_d], 1),
-                                 cand_ids.shape[1])
-        return torch.gather(merged, 1, top), d
-
-    codes, n = shard.index.pq_codes, shard.n
-    L, E, M = shard.p.l_size, shard.p.beam_width * shard.R, shard.M
-    cache = AutotuneCache(platform_key(shard.dev))
-    luts_all = shard.luts()
-    nbytes = 1024 * (M * 256 * 4 + L * 8 + Parity.COLD_SETS * E * 4)
-    log(f"autotune: card bytes at most {nbytes / 1e6:.1f} MB a shape (LUTs, "
-        f"one candidate list, {Parity.COLD_SETS} id sets at nq=1024) beside "
-        f"the shard's codes; host bytes: the cache file")
-    parts, shapes = [], {}
-    for nq in (1024, 256, 32, 8):
-        luts = luts_all[torch.arange(nq, device=shard.dev)
-                        % len(luts_all)].contiguous()
-        cand_ids = parity.randint(n, nq, L, dtype=torch.int32)
-        cand_d, order = dispatch.pq_adc_batched(codes, luts, cfg,
-                                                ids=cand_ids).sort(1)
-        cand_ids = torch.gather(cand_ids, 1, order)
-        sets = [(codes, luts, cand_ids, cand_d.contiguous(),
-                 torch.where(torch.rand(nq, E, generator=parity.g,
-                                        device=shard.dev) < 0.6,
-                             parity.randint(n, nq, E), -1).to(torch.int32))
-                for _ in range(Parity.COLD_SETS)]
-        a, b = fused(*sets[0]), unfused(*sets[0])
-        check(bits_equal(torch, a[0], b[0]) and bits_equal(torch, a[1], b[1]),
-              f"autotune nq={nq}: fused and unfused hops differ")
-        ms = {"cuda": cuda_ms(torch, [lambda s=s: fused(*s) for s in sets]),
-              "off": cuda_ms(torch, [lambda s=s: unfused(*s) for s in sets])}
-        dims = dict(nq=nq, e=E, l=L, m=M)
-        for backend, t in ms.items():
-            cache.record("beam_step", backend, t * 1e3, **dims)
-        shapes[nq] = dims
-        parts.append(f"nq={nq}: fused {ms['cuda']:.4f} ms, unfused "
-                     f"{ms['off']:.4f} ms")
-    (ROOT / "build").mkdir(exist_ok=True)
-    path = cache.save(ROOT / "build" / "autotune_cache.json")
-    def resolved(dims):
-        return resolve_kernels(
-            shard.p._replace(kernels=KernelConfig(*["auto-tuned"] * 5)),
-            shard.dev, shapes={"beam_step": dims}, cache=path)
-    picks = [f"{cache.best('beam_step', dims)} -> beam_step="
-             f"{resolved(dims).kernels.beam_step!r} at "
-             f"{bucket_key('beam_step', **dims)}" for dims in shapes.values()]
-    p = resolved(dict(nq=shard.nq, e=E, l=L, m=M))
-    ids, dists, _ = search(shard.index, shard.queries, p)
-    check(bits_equal(torch, ids, shard.result[0])
-          and bits_equal(torch, dists, shard.result[1]),
-          "a search under the auto-tuned config != phase 4's")
-    log(f"autotune ({cache.platform}; hop E={E} ids 60% kept into the "
-        f"shard's codes, L={L}, M={M}; cycling {Parity.COLD_SETS} id sets): "
-        + "; ".join(parts) + f"; written to {path.relative_to(ROOT)}; "
-        f"auto-tuned picks: " + "; ".join(picks) + f"; the search under "
-        f"the config resolved at nq={shard.nq} (beam_step="
-        f"{p.kernels.beam_step!r}) == phase 4's rows")
 
 
 def report(parity, launches, times):

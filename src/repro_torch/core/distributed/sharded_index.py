@@ -52,7 +52,7 @@ import torch
 from ...kernels.beam_step.beam_step import stable_smallest
 from ..index import build_device_index
 from ..search.beam import (DeviceIndex, SearchParams, resolve_device,
-                           resolve_kernels, search_batched)
+                           search_batched)
 
 
 class ShardedIndex(NamedTuple):
@@ -479,9 +479,6 @@ def make_sharded_search(mesh: Mesh, p: SearchParams, merge: str = "hier",
     """
     if merge not in ("hier", "flat"):
         raise ValueError(f"merge must be 'hier' or 'flat', got {merge!r}")
-    # Config time: kernel requests resolve once, for the mesh's device, so
-    # no per-shard search consults the platform.
-    p = resolve_kernels(p, mesh.device)
     stacked = mesh.groups is None
     cents = None if router is None else \
         torch.as_tensor(router.centroids).to(mesh.device)

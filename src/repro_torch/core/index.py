@@ -92,14 +92,14 @@ def build_device_index(vectors: np.ndarray, r: int = 32, l_build: int = 64,
 
 
 def verify_index_slots(index: DeviceIndex, r_max: int,
-                       universe: int | None = None, kernels=None) -> bool:
+                       universe: int | None = None) -> bool:
     """Decode every EF slot through the kernel dispatch layer and check it
     reproduces the raw adjacency exactly (the compressed index tier is
     lossless — the paper's Q1 fidelity requirement). Slots store adjacency
     sorted ascending, so the raw lists are compared as sorted sets."""
     n, r = index.neighbors.shape
     universe = universe or n
-    vals, cnts = dispatch.ef_decode(index.ef_slots, r_max, universe, kernels)
+    vals, cnts = dispatch.ef_decode(index.ef_slots, r_max, universe)
     if not bool((cnts == index.counts).all()):
         return False
     width = max(r, r_max)

@@ -34,7 +34,6 @@ table and the ids of the rows it reads, so no row gather precedes it.
 """
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import torch
@@ -42,8 +41,7 @@ import torch
 from ... import tracing
 from ...kernels import dispatch
 from ...kernels.beam_step.beam_step import lut_slices, stable_smallest
-from ...kernels.dispatch import (KernelConfig, resolve_backend,
-                                 resolve_device)
+from ...kernels.dispatch import resolve_device
 from ...kernels.search_round import search_round
 from ..graph.pq import build_lut_torch
 
@@ -80,8 +78,6 @@ class SearchParams(NamedTuple):
     trace_hints: bool = False    # also record each round's PROVISIONAL next
                                  # frontier (top-W unexpanded candidates
                                  # before the round's neighbours merge)
-    kernels: KernelConfig | None = None  # per-op request (dispatch layer);
-                                 # None -> KernelConfig() (all "auto")
     filter_tombstones: bool = False  # mask index.tombstone rows out of the
                                  # re-rank heap (id -> -1), never out of
                                  # traversal
@@ -100,40 +96,13 @@ class SearchStats(NamedTuple):
                                    # frontier ids (empty unless trace_hints)
 
 
-def check_kernels(p: SearchParams) -> SearchParams:
-    """Fill ``p.kernels`` (None -> all ``auto``) and check its values: the
-    search's own check. An ``auto-tuned`` entry raises here, since it
-    resolves only at config time (:func:`resolve_kernels`)."""
-    k = (p.kernels or KernelConfig()).check()
-    if "auto-tuned" in k:
-        raise RuntimeError(
-            "unresolved 'auto-tuned' kernel request: resolve the config "
-            "once at config time (resolve_kernels, KernelConfig.resolve)")
-    return p if k == p.kernels else p._replace(kernels=k)
-
-
-def resolve_kernels(p: SearchParams, device=None, shapes: dict | None = None,
-                    cache=None) -> SearchParams:
-    """Fill ``p.kernels`` (None -> all ``auto``) and check its values; an
-    ``auto-tuned`` entry resolves here, once, for tensors on ``device``
-    (None = the card) per (op, shape-bucket) from the autotune cache
-    (``shapes``: op name -> dims dict, as the reference takes it;
-    ``cache``: an ``AutotuneCache`` or its path, None = the committed
-    one)."""
-    k = (p.kernels or KernelConfig()).check()
-    if "auto-tuned" in k:
-        k = k.resolve(resolve_device(device), shapes, cache)
-    return p if k == p.kernels else p._replace(kernels=k)
-
-
 def _gather_neighbors(index: DeviceIndex, sel_ids: torch.Tensor,
                       p: SearchParams, n: int) -> torch.Tensor:
     """[nq, W] vertex ids -> [nq, W * r_max] neighbour ids (-1 = invalid)."""
     if p.use_ef:
         # the kernel reads each slot by id, clipped to the table
-        return search_round.ef_lists(
-            functools.partial(dispatch.ef_decode, cfg=p.kernels),
-            index.ef_slots, p.r_max, p.universe or n, sel_ids)
+        return search_round.ef_lists(dispatch.ef_decode, index.ef_slots,
+                                     p.r_max, p.universe or n, sel_ids)
     nbrs = index.neighbors[sel_ids.clamp(0, n - 1)]
     return torch.where((sel_ids >= 0)[..., None], nbrs,
                        -1).reshape(sel_ids.shape[0], -1)
@@ -147,19 +116,12 @@ def _any(flag: torch.Tensor) -> bool:
 
 
 def _graphable(luts: torch.Tensor, p: SearchParams) -> bool:
-    """A round can be captured: it runs on the card, reads nothing back to
-    the host (no trace buffers, whose writes are masked by row) and keeps
-    its visited set in the hash table (the dense set's index writes are
-    left to the plain loop), with every dispatched op a CUDA kernel."""
-    if not luts.is_cuda or p.trace_fetches or p.trace_hints \
-            or p.visited_hash_bits <= 0:
-        return False
-    ops = [("ef_decode", p.kernels.ef_decode)] if p.use_ef else []
-    ops.append(("beam_step", p.kernels.beam_step)
-               if p.kernels.beam_step != "off"
-               else ("pq_adc_batched", p.kernels.pq_adc))
-    return all(resolve_backend(req, luts.device, op) == "cuda"
-               for op, req in ops)
+    """A round can be captured: it runs on the card (every dispatched op a
+    CUDA kernel), reads nothing back to the host (no trace buffers, whose
+    writes are masked by row) and keeps its visited set in the hash table
+    (the dense set's index writes are left to the plain loop)."""
+    return luts.is_cuda and not (p.trace_fetches or p.trace_hints) \
+        and p.visited_hash_bits > 0
 
 
 def _fused(luts: torch.Tensor, p: SearchParams, n: int) -> bool:
@@ -229,14 +191,12 @@ def traverse(index: DeviceIndex, luts: torch.Tensor, p: SearchParams):
     hint_len = p.max_iters if p.trace_hints else 0
     m, k = luts.shape[1], luts.shape[2]
     e = W * (p.r_max if p.use_ef else index.neighbors.shape[1])
-    # the slices the fused hop's CUDA kernel stages a LUT in (1 elsewhere)
+    # the slices the hop's CUDA kernel stages a LUT in (1 on the CPU)
     hop_args = {"m": m, "lut_bytes": m * k * 4,
-                "lut_slices": (lut_slices(m, k, e, L)
-                               if luts.is_cuda and p.kernels.beam_step != "off"
-                               else 1)}
+                "lut_slices": lut_slices(m, k, e, L) if luts.is_cuda else 1}
 
     entry = index.medoid.to(torch.int32).expand(nq).contiguous()
-    e_d = dispatch.pq_adc_batched(index.pq_codes, luts, p.kernels,
+    e_d = dispatch.pq_adc_batched(index.pq_codes, luts,
                                   ids=entry[:, None])[:, 0]
     cand_ids = torch.full((nq, L), -1, dtype=torch.int32, device=dev)
     cand_ids[:, 0] = entry
@@ -272,17 +232,10 @@ def traverse(index: DeviceIndex, luts: torch.Tensor, p: SearchParams):
         buf[rows[ok], iters[ok].long()] = ids[ok]
 
     def _hop(new_ids):
+        # the fused hop reads the code rows of new_ids itself
         with tracing.span("search.hop", hop_args):
-            if p.kernels.beam_step != "off":
-                # the fused hop reads the code rows of new_ids itself
-                return dispatch.beam_step(index.pq_codes, luts, cand_ids,
-                                          cand_d, new_ids, p.kernels)
-            # the ADC reads the code rows of new_ids; +inf where masked
-            new_d = dispatch.pq_adc_batched(index.pq_codes, luts, p.kernels,
-                                            ids=new_ids)
-            top_d, top_i = stable_smallest(torch.cat([cand_d, new_d], 1), L)
-            return (torch.gather(torch.cat([cand_ids, new_ids], 1), 1,
-                                 top_i), top_d, top_i)
+            return dispatch.beam_step(index.pq_codes, luts, cand_ids, cand_d,
+                                      new_ids)
 
     def _plain_round():
         # one expansion of every active row, the state updated in place
@@ -313,11 +266,10 @@ def traverse(index: DeviceIndex, luts: torch.Tensor, p: SearchParams):
                 index.ef_slots, p.r_max, p.universe or n, cand_ids, cand_d,
                 expanded, active, visited, fetched, pq_ct, flag, new_ids, W,
                 p.visited_hash_bits)
-            top_ids, top_d, top_i = _hop(new_ids)
             search_round.round_settle_cuda(
-                top_ids, top_d, top_i.to(torch.int32), cand_ids, cand_d,
-                expanded, iters, stab, pf_iter, prev_top, active, flag, W,
-                p.rerank_batch, p.max_iters)
+                *_hop(new_ids), cand_ids, cand_d, expanded, iters, stab,
+                pf_iter, prev_top, active, flag, W, p.rerank_batch,
+                p.max_iters)
 
     step = _fused_round if fused else _plain_round
     go = _any(active)
@@ -361,7 +313,7 @@ def rerank(index: DeviceIndex, queries: torch.Tensor, cand_ids: torch.Tensor,
 
     def exact(ids):
         safe = ids.clamp(0, n - 1)
-        d = dispatch.rerank_l2(queries, index.vectors, p.kernels, ids=safe)
+        d = dispatch.rerank_l2(queries, index.vectors, ids=safe)
         if p.filter_tombstones:
             d = torch.where(index.tombstone[safe], torch.inf, d)
         return torch.where(ids >= 0, d, torch.inf)
@@ -413,7 +365,6 @@ def search_batched(index: DeviceIndex, queries, p: SearchParams,
     dists [nq, K] float32, SearchStats of [nq])."""
     with tracing.span("search.batch"):
         queries = _on_device(index, queries, device)
-        p = check_kernels(p)
         with tracing.span("search.lut"):
             luts = build_lut_torch(queries, index.pq_centroids)
         with tracing.span("search.traverse"):
@@ -446,7 +397,6 @@ def search_candidates(index: DeviceIndex, queries, p: SearchParams,
     (cand_ids [nq, L], pq_dists [nq, L]), -1 = empty slot: the §3.5 insert
     path's candidate pool. Distances are PQ (ADC) approximations."""
     queries = _on_device(index, queries, device)
-    p = check_kernels(p)
     with tracing.span("search.lut"):
         luts = build_lut_torch(queries, index.pq_centroids)
     with tracing.span("search.traverse"):

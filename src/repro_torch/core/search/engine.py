@@ -36,48 +36,22 @@ import numpy as np
 
 import torch
 
-from ...kernels.dispatch import resolve_backend
 from ..graph.pq import PQCodebook, adc_lookup_np, build_lut
 
 T_IO = 80.0
 T_IO_WRITE = 20.0    # µs per queued 4 KiB NVMe block write (merge path)
 
-# Per-backend compute costs (µs/op) for the latency model, keyed by the
-# concrete backends of ``kernels/dispatch.py``. "ref" prices the paper's CPU
-# implementation (the constants documented above). "cuda" (the hand-written
-# kernels on the card) is priced as ref until measurements on the card
-# replace it — the rule the reference applies to its interpreter mode, so
-# no modeled latency claims a speed-up nobody measured.
-KERNEL_COST_US = {
-    "ref":  {"pq": 0.05, "ex": 0.10, "dec": 0.20},
-    "cuda": {"pq": 0.05, "ex": 0.10, "dec": 0.20},
-}
+# Compute costs (µs/op) of the latency model: the paper's CPU
+# implementation, the reference's ``ref`` row. The card's kernels are
+# priced the same, so no modeled latency claims a speed-up nobody measured.
+T_PQ = 0.05
+T_EX = 0.10
+T_DEC = 0.20
 
-T_PQ = KERNEL_COST_US["ref"]["pq"]
-T_EX = KERNEL_COST_US["ref"]["ex"]
-T_DEC = KERNEL_COST_US["ref"]["dec"]
-
-
-def op_backend(kernels, op: str, device) -> str:
-    """The concrete backend (``KERNEL_COST_US`` key) that ``op``'s field of
-    a ``KernelConfig`` resolves to for tensors on ``device``: ``ref`` on
-    the CPU, ``cuda`` on the card. An ``auto`` request never reaches
-    :func:`compute_costs`."""
-    return resolve_backend(getattr(kernels, op), torch.device(device), op)
-
-
-def beam_compute_costs(kernels, device) -> tuple[float, float]:
-    """(t_pq, t_ex) in µs for a ``KernelConfig`` whose ops run on
-    ``device`` — the serving tier's pricing entry point."""
-    t_pq, t_ex, _ = compute_costs(op_backend(kernels, "pq_adc", device),
-                                  op_backend(kernels, "rerank_l2", device))
-    return t_pq, t_ex
-
-# Per-codec decode cost (µs/record, ref backend) — the manifest-resolved
-# replacement for the single hard-coded T_DEC: once the compression planner
-# has picked a codec per component (StorageManifest), the latency model
-# prices each tier's decompressions with ITS codec, scaled by the kernel
-# backend's dec ratio (see KERNEL_COST_US).
+# Per-codec decode cost (µs/record) — the manifest-resolved replacement for
+# the single hard-coded T_DEC: once the compression planner has picked a
+# codec per component (StorageManifest), the latency model prices each
+# tier's decompressions with ITS codec.
 CODEC_DEC_US = {
     "raw": 0.0,                  # memcpy only — no decode on the critical path
     "bitpack": 0.05,             # fixed-width shifts/masks
@@ -90,57 +64,26 @@ CODEC_DEC_US = {
 }
 
 
-def t_dec_for(codec: str, backend: str = "ref") -> float:
-    """µs to decode one record of a component stored under ``codec``,
-    priced at the given kernel backend. Unknown codec names raise — a typo
-    silently priced as raw would make the latency model lie."""
+def t_dec_for(codec: str) -> float:
+    """µs to decode one record of a component stored under ``codec``.
+    Unknown codec names raise — a typo silently priced as raw would make
+    the latency model lie."""
     if codec not in CODEC_DEC_US:
         raise ValueError(f"unknown codec {codec!r} in the cost model; "
                          f"expected {tuple(CODEC_DEC_US)}")
-    *_, dec = compute_costs(dec_backend=backend)
-    scale = dec / KERNEL_COST_US["ref"]["dec"]
-    return CODEC_DEC_US[codec] if scale == 1.0 \
-        else CODEC_DEC_US[codec] * scale
+    return CODEC_DEC_US[codec]
 
 
-def manifest_dec_costs(manifest, backend: str = "ref"
-                       ) -> tuple[float, float]:
+def manifest_dec_costs(manifest) -> tuple[float, float]:
     """(t_dec_index, t_dec_vector) in µs from a manifest's resolved codecs
     (adjacency + vector_chunks components; a missing manifest prices both
     at the legacy T_DEC; absent components price at the layer defaults:
-    elias_fano index records, xor_delta_huffman vector records).
-
-    Precedence, pinned by test_engine.py: the manifest picks WHICH codec
-    each tier decodes (its per-record base cost from CODEC_DEC_US);
-    ``kernel_backend`` scales HOW FAST it decodes (the backend's dec
-    ratio, via :func:`t_dec_for`). Both tiers get the backend scaling —
-    including the vector tier — so a manifest-priced engine on a faster
-    backend pays its vector decodes at that backend's rate."""
+    elias_fano index records, xor_delta_huffman vector records)."""
     if manifest is None:
-        *_, dec = compute_costs(dec_backend=backend)
-        return dec, dec
-    return (t_dec_for(manifest.codec_for("adjacency", "elias_fano"), backend),
+        return T_DEC, T_DEC
+    return (t_dec_for(manifest.codec_for("adjacency", "elias_fano")),
             t_dec_for(manifest.codec_for("vector_chunks",
-                                         "xor_delta_huffman"), backend))
-
-
-def compute_costs(pq_backend: str = "ref", ex_backend: str | None = None,
-                  dec_backend: str | None = None) -> tuple[float, float, float]:
-    """(t_pq, t_ex, t_dec) in µs for the given per-op backends.
-
-    Ops default to the pq backend. Unknown backend names raise — silently
-    pricing a typo as ref would make the latency model lie, and this is
-    config-time validation (EngineConfig / a resolved KernelConfig), not a
-    serving hot path.
-    """
-    def cost(backend, kind):
-        if backend not in KERNEL_COST_US:
-            raise ValueError(f"unknown kernel backend {backend!r} in the "
-                             f"cost model; expected {tuple(KERNEL_COST_US)}")
-        return KERNEL_COST_US[backend][kind]
-    return (cost(pq_backend, "pq"),
-            cost(ex_backend or pq_backend, "ex"),
-            cost(dec_backend or pq_backend, "dec"))
+                                         "xor_delta_huffman")))
 
 
 @dataclass(frozen=True)
@@ -178,8 +121,7 @@ class ServiceModel:
 def service_model_from_report(report, base_us: float = T_IO) -> ServiceModel:
     """Calibrate a :class:`ServiceModel` from a probe batch's
     ``BatchReport`` (serve/ann.py): the mean modeled per-query latency —
-    already priced at the searcher's resolved kernel backends and manifest
-    codecs — becomes the per-query coefficient. Deterministic: the modeled
+    already priced at the manifest's codecs — becomes the per-query coefficient. Deterministic: the modeled
     latency is a pure function of the fetch trace, not of wall time."""
     per_q = float(getattr(report, "modeled_latency_us", 0.0))
     if per_q <= 0.0:
@@ -188,19 +130,16 @@ def service_model_from_report(report, base_us: float = T_IO) -> ServiceModel:
     return ServiceModel(per_query_us=per_q, base_us=float(base_us))
 
 
-def merge_cost_us(blocks_written: int, lists_reencoded: int,
-                  backend: str = "ref") -> float:
+def merge_cost_us(blocks_written: int, lists_reencoded: int) -> float:
     """Model one §3.5 merge's index-store cost from its DIRTY-BLOCK count.
 
     The incremental path (``CompressedIndexStore.rewrite_blocks``) writes
     only the blocks whose adjacency lists changed plus fresh tail blocks, so
     merge I/O is ``blocks_written * T_IO_WRITE``; each re-encoded list is
-    priced like a record (de)compression at the given kernel backend. A full
-    rebuild is the same formula with every block dirty — which is exactly
+    priced like a record (de)compression (T_DEC). A full rebuild is the same formula with every block dirty — which is exactly
     why dirty-block accounting matters for the paper's write-amp claim.
     """
-    _, _, t_dec = compute_costs(dec_backend=backend)
-    return blocks_written * T_IO_WRITE + lists_reencoded * t_dec
+    return blocks_written * T_IO_WRITE + lists_reencoded * T_DEC
 
 
 # Cross-shard top-K merge pricing (the hierarchical merge of the sharded
@@ -296,7 +235,6 @@ class EngineConfig:
     pipelined: bool = False
     latency_aware: bool = False     # §3.4 differentiated I/O + prefetch
     compressed: bool = False        # index/vector decompression accounting
-    kernel_backend: str = "ref"     # prices T_PQ/T_EX/T_DEC (KERNEL_COST_US)
     manifest: object = None         # StorageManifest: price each tier's
                                     # T_DEC from its resolved codec
                                     # (CODEC_DEC_US) instead of one constant
@@ -573,17 +511,15 @@ def search_colocated(store, pq_codes: np.ndarray, cb: PQCodebook,
 
 
 def _cpu_us(st: QueryStats, cfg: EngineConfig | None = None) -> float:
-    backend = cfg.kernel_backend if cfg else "ref"
-    t_pq, t_ex, t_dec = compute_costs(backend)
     if cfg is not None and cfg.manifest is not None:
         # Component-aware pricing: each tier's decodes cost what ITS
         # manifest-resolved codec costs (raw = free, EF/Huffman = T_DEC
         # scale) instead of one per-arm constant.
-        t_dec_ix, t_dec_vec = manifest_dec_costs(cfg.manifest, backend)
+        t_dec_ix, t_dec_vec = manifest_dec_costs(cfg.manifest)
         dec_us = st.graph_decs * t_dec_ix + st.vector_decs * t_dec_vec
     else:
-        dec_us = st.decompressions * t_dec
-    return st.pq_ops * t_pq + st.exact_ops * t_ex + dec_us
+        dec_us = st.decompressions * T_DEC
+    return st.pq_ops * T_PQ + st.exact_ops * T_EX + dec_us
 
 
 def rerank_tail_us(rerank_batches: int) -> float:

@@ -160,8 +160,7 @@ class SealedSegment:
         nblk = int(torch.unique(self.packed.rec_block[rows]).numel())
         io.read(nblk * BLOCK_SIZE, n=nblk)
 
-    def decode_bytes(self, rows, io: IOStats | None = None,
-                     kernels=None) -> torch.Tensor:
+    def decode_bytes(self, rows, io: IOStats | None = None) -> torch.Tensor:
         """Fetch + decompress records -> [k, V] uint8."""
         rows = torch.as_tensor(rows, dtype=torch.int64).to(self.ids.device)
         pk = self.packed
@@ -174,18 +173,16 @@ class SealedSegment:
             base_of = self.chunk_base[rows // self.rows_per_chunk]
             return dispatch.huffman_decode(pk.data, pk.rec_start[rows],
                                            self.v_bytes, self.huff,
-                                           self.bases, base_of, kernels)
+                                           self.bases, base_of)
 
-    def decode_rows(self, rows, io: IOStats | None = None,
-                    kernels=None) -> torch.Tensor:
+    def decode_rows(self, rows, io: IOStats | None = None) -> torch.Tensor:
         """Fetch + decompress records -> [k, dim] of the store's dtype.
 
         The records are decoded, and the rows of every chunk with a base
-        XOR-ed back, by one ``dispatch.huffman_decode`` call with
-        ``kernels`` (a ``KernelConfig``, None = all ``auto``): the kernel
+        XOR-ed back, by one ``dispatch.huffman_decode`` call: the kernel
         for tensors on the card, its plain version on the CPU.
         """
-        raw = self.decode_bytes(rows, io, kernels)
+        raw = self.decode_bytes(rows, io)
         return raw.view(self.dtype).reshape(raw.shape[0], self.dim)
 
 
@@ -247,9 +244,6 @@ class StoreConfig:
                                         # (forced delta), "huffman",
                                         # "plane_huffman", "raw";
                                         # planner-selected via from_manifest
-    kernels: object = None              # KernelConfig (None = all "auto"):
-                                        # its byteplane field routes the
-                                        # XOR-delta inverse on loads
     reorder: str | None = None          # the seal-time graph ordering this
                                         # store's rows were relabeled by
                                         # (manifest contract; the store
@@ -595,8 +589,7 @@ class DecoupledVectorStore:
                 else:
                     s = self.sealed[sid]
                     got = s.decode_bytes(s.rows_of(ids[sel]),
-                                         io=self.io if account else None,
-                                         kernels=self.cfg.kernels)
+                                         io=self.io if account else None)
                 with tracing.span("vstore.sync"):
                     lo = int(sel[0])
                 with tracing.span("vstore.sync"):
@@ -641,8 +634,7 @@ class DecoupledVectorStore:
             live = ~seg.stale
             if bool(live.any()):
                 rows = torch.nonzero(live).squeeze(1)
-                vecs = seg.decode_rows(rows, io=self.io,      # GC read I/O
-                                       kernels=self.cfg.kernels)
+                vecs = seg.decode_rows(rows, io=self.io)      # GC read I/O
                 self.append(seg.ids[rows], vecs)              # copy-forward
             # Atomic switch: old segment released only now (§3.5 consistency).
             del self.sealed[sid]

@@ -115,7 +115,7 @@ def build_device_view(adjacency: list, medoid: int, pq_codes: np.ndarray,
 
 
 def memtable_topk(snap: Snapshot, queries: np.ndarray, k: int,
-                  kernels=None, device=None) -> tuple[np.ndarray, np.ndarray]:
+                  device=None) -> tuple[np.ndarray, np.ndarray]:
     """Brute-force side-scan of the snapshot's buffered inserts (§3.5):
     exact L2 against every live mem row -> (ids [nq, k], d [nq, k]) padded
     with (-1, +inf), on the host. The live rows go to ``device`` (None = the
@@ -135,7 +135,7 @@ def memtable_topk(snap: Snapshot, queries: np.ndarray, k: int,
     mat = np.stack([np.asarray(v, np.float32) for _, v in rows])
     table = torch.from_numpy(mat).to(dev)
     every = torch.arange(len(rows), dtype=torch.int32, device=dev)
-    dd = dispatch.rerank_l2(torch.from_numpy(queries).to(dev), table, kernels,
+    dd = dispatch.rerank_l2(torch.from_numpy(queries).to(dev), table,
                             ids=every.expand(nq, -1).contiguous())
     dd = dd.cpu().numpy()
     take = min(k, len(rows))

@@ -42,12 +42,11 @@ import numpy as np
 import torch
 
 from ... import tracing
-from ...kernels import dispatch
 from ..graph.pq import PQCodebook, encode_pq
 from ..graph.vamana import robust_prune
-from ..search.beam import (SearchParams, check_kernels, resolve_device,
-                           search, search_candidates)
-from ..search.engine import merge_cost_us, merge_topk, op_backend
+from ..search.beam import (SearchParams, resolve_device, search,
+                           search_candidates)
+from ..search.engine import merge_cost_us, merge_topk
 from ..storage.blockstore import BlockStore
 from ..storage.index_store import CompressedIndexStore
 from ..storage.layout import BLOCK_SIZE
@@ -73,8 +72,6 @@ class UpdateConfig:
     incremental: bool = True          # False -> always full store rebuild
     benefit_threshold: float = 0.0    # live-search re-rank early-stop; 0.0 =
                                       # exact re-rank of the whole cand list
-    kernels: object = None            # KernelConfig for the device path
-                                      # (None -> every op "auto")
     reorder: str | None = None        # seal-time locality ordering of the
                                       # index store ("bfs"/"bisection");
                                       # merges that INSERT under an ordered
@@ -163,10 +160,6 @@ class StreamingIndex:
         self.delete_buffer: set[int] = set()
         self.merges = 0
         self.last_merge: MergeStats | None = None
-        # Check the per-op kernel requests ONCE (config time): every search
-        # this index runs, and the merge cost pricing, use these.
-        self._kernels = (dispatch.default_config() if cfg.kernels is None
-                         else cfg.kernels.check())
         # ONE storage engine under both tiers (§3.3): every index-store
         # build/rewrite accounts through it, and the vector tier's engine
         # chains into its total, so merge write-amp is read off one ruler.
@@ -219,7 +212,7 @@ class StreamingIndex:
         return SearchParams(
             l_size=l_size, k=k, r_max=self.cfg.r, universe=universe,
             benefit_threshold=self.cfg.benefit_threshold,
-            filter_tombstones=True, kernels=self._kernels)
+            filter_tombstones=True)
 
     # ------------------------------------------------------------- updates
     def insert(self, ids: np.ndarray, vecs: np.ndarray) -> None:
@@ -411,8 +404,7 @@ class StreamingIndex:
                 stats.write_bytes = store.physical_bytes
             stats.modeled_cost_us = merge_cost_us(
                 stats.blocks_rewritten + stats.blocks_appended,
-                len(self.adjacency) if stats.full_rebuild else len(dirty),
-                backend=op_backend(self._kernels, "ef_decode", self.device))
+                len(self.adjacency) if stats.full_rebuild else len(dirty))
 
         # 5. Publish: device view patched from the previous snapshot's view
         #    where the store merge was incremental (same EF universe).
@@ -478,11 +470,10 @@ def snapshot_search(snap: Snapshot, queries: np.ndarray, p: SearchParams,
     buffered inserts, merged by the serving tier's top-K merge. ``p`` must
     carry the snapshot's EF universe."""
     queries = np.asarray(queries, np.float32)
-    p = check_kernels(p)
     ids, dists, _ = search(snap.device, queries, p, device)
     gids = ids.cpu().numpy().astype(np.int64)
     gd = dists.cpu().numpy().astype(np.float32)
-    mids, md = memtable_topk(snap, queries, p.k, p.kernels, device)
+    mids, md = memtable_topk(snap, queries, p.k, device)
     out_i, out_d = merge_topk(np.stack([gids, mids]).astype(np.int64),
                               np.stack([gd, md]), p.k)
     return out_i, out_d

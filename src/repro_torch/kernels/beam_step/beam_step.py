@@ -13,7 +13,7 @@ the L smallest of ``[cand | new]`` by (distance, merged index), with
 ``beam_step_cuda`` launches ``csrc/beam_step.cu`` (the port of
 ``repro/kernels/beam_step/beam_step.py::beam_step_pallas``), which reads
 each row of ``pq_codes`` itself; ``beam_step_ref`` is its plain PyTorch
-version, op for op the unfused hot sequence of ``core/search/beam.py``.
+version: ``pq_adc_batched_ref`` by id, then a stable top-L merge.
 Where an ``[M, K]`` LUT does not fit a block's shared memory the kernel
 stages it in slices (``lut_slices``); the result is the same.
 ``lax.top_k`` puts the lower index first on ties and ``torch.topk`` does

@@ -29,9 +29,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("pq_adc_batched", "ef_decode", "beam_step", "rerank_l2",
-           "pq_encode", "byteplane", "pq_adc", "row_gather",
-           "huffman_decode", "ef_record_decode", "round_expand",
-           "round_settle")
+           "pq_encode", "byteplane", "pq_adc", "huffman_decode",
+           "ef_record_decode", "round_expand", "round_settle")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

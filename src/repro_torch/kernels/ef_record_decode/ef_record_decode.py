@@ -14,10 +14,8 @@ kernel (the reference decodes records on the host with numpy
 ``decode_record``). ``ef_record_decode_ref`` is its plain version,
 ``core/codec/elias_fano.py::decode_records_torch`` on the gathered table
 entries. Integer work: the two are bit-identical. Both read the largest
-count back to the host (an ``ef.sync`` span): it sets the width. A given
-``r_max`` sets it instead (rows then hold their first ``r_max`` values),
-for timing the kernel's device work without the read. The plain version
-also reads back each pass's bitmap width.
+count back to the host (an ``ef.sync`` span): it sets the width. The
+plain version also reads back each pass's bitmap width.
 """
 import functools
 
@@ -48,34 +46,31 @@ def _refuse_empty(rec_start, pos):
         raise ValueError("ef_record_decode: positions into an empty table")
 
 
-def _table(buf, rec_start, rec_len, pos, r_max):
+def _table(buf, rec_start, rec_len, pos):
     """-> (positions clipped to the table, the rows not decoded, the width:
-    ``r_max``, else the largest count of the rows decoded, read back)."""
+    the largest count of the rows decoded, read back)."""
     _refuse_empty(rec_start, pos)
     n = rec_start.shape[0]
     p = pos.clamp(0, max(n - 1, 0))
     ln = rec_len[p]
     skip = (p != pos) | (ln < 0) | (ln > MAX_RECORD_BYTES)
-    if r_max is None:
-        r_max = 0
-        if pos.numel():
-            with tracing.span("ef.sync"):
-                r_max = int(buf[rec_start[p]].masked_fill(skip, 0).max())
+    r_max = 0
+    if pos.numel():
+        with tracing.span("ef.sync"):
+            r_max = int(buf[rec_start[p]].masked_fill(skip, 0).max())
     return p, skip, r_max
 
 
 def ef_record_decode_ref(buf: torch.Tensor, rec_start: torch.Tensor,
-                         rec_len: torch.Tensor, pos: torch.Tensor,
-                         r_max: int | None = None):
-    p, skip, r_max = _table(buf, rec_start, rec_len, pos, r_max)
+                         rec_len: torch.Tensor, pos: torch.Tensor):
+    p, skip, r_max = _table(buf, rec_start, rec_len, pos)
     vals, counts = ef.decode_records_torch(buf, rec_start[p], rec_len[p],
                                            r_max)
     return vals.masked_fill(skip[:, None], -1), counts.masked_fill(skip, -1)
 
 
 def ef_record_decode_cuda(buf: torch.Tensor, rec_start: torch.Tensor,
-                          rec_len: torch.Tensor, pos: torch.Tensor,
-                          r_max: int | None = None):
+                          rec_len: torch.Tensor, pos: torch.Tensor):
     if buf.dtype != torch.uint8 or buf.dim() != 1:
         raise ValueError(f"ef_record_decode takes a 1-D uint8 image, got "
                          f"{buf.dtype} {tuple(buf.shape)}")
@@ -91,9 +86,7 @@ def ef_record_decode_cuda(buf: torch.Tensor, rec_start: torch.Tensor,
                          f"got {pos.dtype} {tuple(pos.shape)}")
     dev = check_cuda(buf, rec_start, rec_len, pos)
     b = pos.shape[0]
-    _refuse_empty(rec_start, pos)
-    if r_max is None:
-        r_max = _table(buf, rec_start, rec_len, pos, r_max)[2]
+    r_max = _table(buf, rec_start, rec_len, pos)[2]
     vals = torch.empty((b, r_max), dtype=torch.int64, device=dev)
     counts = torch.empty((b,), dtype=torch.int64, device=dev)
     if b:

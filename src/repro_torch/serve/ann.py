@@ -49,10 +49,9 @@ from ..core.codec import elias_fano as ef
 from ..core.distributed.sharded_index import (ShardedIndex, ShardRouter,
                                               route_mask)
 from ..core.search.beam import (DeviceIndex, SearchParams, resolve_device,
-                                resolve_kernels, search)
-from ..core.search.engine import (T_IO, beam_compute_costs, compute_costs,
-                                  manifest_dec_costs, merge_topk, op_backend,
-                                  rerank_tail_us)
+                                search)
+from ..core.search.engine import (T_EX, T_IO, T_PQ, manifest_dec_costs,
+                                  merge_topk, rerank_tail_us)
 from ..core.storage.blockstore import BlockStore, LRUCache
 from ..core.update.consistency import (ShardedSnapshotHandle,
                                        SnapshotHandle, memtable_topk)
@@ -69,7 +68,7 @@ class ServeConfig:
     manifest: object = None         # StorageManifest: price each tier's
                                     # decode at its planner-resolved codec
                                     # (engine.CODEC_DEC_US) instead of the
-                                    # flat per-backend T_DEC
+                                    # flat T_DEC
     shared_budget: bool = False     # pool cache_bytes across partitions
                                     # (multi-tenant mode: per-tenant LRUs
                                     # with quota floors, global-LRU eviction)
@@ -253,23 +252,11 @@ class BatchedSearcher:
         elif self._shandle is not None:
             u, r = self._sharded_geometry(self._shandle.pin())
             p = p._replace(filter_tombstones=True, universe=u, r_max=r)
-        # Config time: check the per-op kernel requests once; the I/O model
-        # prices compute at the backends they resolve to on this device
-        # (ref on the CPU, cuda on the card).
-        p = resolve_kernels(p, self.device)
         self.p = p
         self.cfg = cfg
-        # Decompressions split per tier: graph-list decode prices at the
-        # ef_decode backend, vector-record decode at the byteplane backend —
-        # and, with a planner manifest, at each tier's RESOLVED codec cost.
-        dec_ix = op_backend(p.kernels, "ef_decode", self.device)
-        dec_vec = op_backend(p.kernels, "byteplane", self.device)
-        self._t_pq, self._t_ex = beam_compute_costs(p.kernels, self.device)
-        *_, self._t_dec_ix = compute_costs(dec_backend=dec_ix)
-        *_, self._t_dec_vec = compute_costs(dec_backend=dec_vec)
-        if cfg.manifest is not None:
-            self._t_dec_ix, _ = manifest_dec_costs(cfg.manifest, dec_ix)
-            _, self._t_dec_vec = manifest_dec_costs(cfg.manifest, dec_vec)
+        # Decompressions split per tier (graph lists, vector records): with
+        # a planner manifest each tier prices at its RESOLVED codec's cost.
+        self._t_dec_ix, self._t_dec_vec = manifest_dec_costs(cfg.manifest)
         self._row_ids = None           # frozen sharded: global-id maps
         self._key_maps = None          # frozen sharded: accounting keys
         if self._handle is not None:
@@ -536,7 +523,7 @@ class BatchedSearcher:
                 # Memtable side-scan: buffered inserts are one more "shard" in
                 # the global merge (ids are globally unique fresh dense ids).
                 out_ids[-1], out_d[-1] = memtable_topk(
-                    snap, queries, self.p.k, self.p.kernels, self.device)
+                    snap, queries, self.p.k, self.device)
                 report.mem_candidates = len(snap.mem_rows)
             elif snaps is not None:
                 # One memtable lane per shard, local fresh ids translated by
@@ -545,7 +532,7 @@ class BatchedSearcher:
                     if si in failed:
                         continue
                     mids, md = memtable_topk(s, queries, self.p.k,
-                                             self.p.kernels, self.device)
+                                             self.device)
                     out_ids[len(shards) + si] = np.where(
                         mids >= 0, mids + offsets[si], -1)
                     out_d[len(shards) + si] = md
@@ -681,7 +668,7 @@ class BatchedSearcher:
             report.io_rounds += io_rounds
             report.rerank_batches += int(batches[qi])
             io = io_rounds * T_IO
-            cpu = (int(pq_ops[qi]) * self._t_pq + int(exact[qi]) * self._t_ex
+            cpu = (int(pq_ops[qi]) * T_PQ + int(exact[qi]) * T_EX
                    + dec_ix * self._t_dec_ix + dec_vec * self._t_dec_vec)
             tail = rerank_tail_us(batches[qi])
             if pfq is not None:

@@ -32,7 +32,6 @@ from repro_torch.kernels.beam_step.beam_step import (beam_step_cuda,
                                                      lut_slices)
 from repro_torch.kernels.byteplane.byteplane import (byteplane_decode_cuda,
                                                      byteplane_decode_ref)
-from repro_torch.kernels.dispatch import KernelConfig
 from repro_torch.kernels.ef_decode.ef_decode import (ef_decode_cuda,
                                                      ef_decode_ref)
 from repro_torch.kernels.huffman_decode.huffman_decode import (
@@ -879,11 +878,9 @@ def test_round_kernels_state_the_shapes_they_take(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("beam_step", ["auto", "off"])
 @pytest.mark.parametrize("nq,max_iters", [(1, 64), (8, 64), (32, 5),
                                           (1024, 64), (1024, 7)])
-def test_fused_traversal_matches_the_plain_one(cuda, nq, max_iters,
-                                               beam_step):
+def test_fused_traversal_matches_the_plain_one(cuda, nq, max_iters):
     """The traversal on the card with its rounds' bookkeeping in the two
     kernels (round 1 launched, the rest a replayed graph) equals the plain
     traversal on the CPU: rows that finish at different rounds, and, at a
@@ -895,10 +892,9 @@ def test_fused_traversal_matches_the_plain_one(cuda, nq, max_iters,
                                       seed=4, device="cpu")
     on_card = DeviceIndex(*(None if t is None else t.to(cuda)
                             for t in on_cpu))
-    p = beam.check_kernels(SearchParams(
-        l_size=48, beam_width=4, k=10, rerank_batch=10, r_max=16,
-        universe=600, max_iters=max_iters, visited_hash_bits=9,
-        kernels=KernelConfig(beam_step=beam_step)))
+    p = SearchParams(l_size=48, beam_width=4, k=10, rerank_batch=10,
+                     r_max=16, universe=600, max_iters=max_iters,
+                     visited_hash_bits=9)
     q = torch.from_numpy(make_queries("prop-like", nq, 16))
     luts = build_lut_torch(q, on_cpu.pq_centroids)
     plain = beam.traverse(on_cpu, luts, p)
@@ -919,8 +915,7 @@ def test_fused_traversal_matches_the_plain_one(cuda, nq, max_iters,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bits", [0, 10])
-@pytest.mark.parametrize("beam_step", ["auto", "off"])
-def test_search_on_card_matches_cpu(cuda, beam_step, bits):
+def test_search_on_card_matches_cpu(cuda, bits):
     """The whole query path on the card (every kernel launched) equals the
     plain path on the CPU: ids, distances and every SearchStats field."""
     vecs = make_vector_dataset("prop-like", 400, 16, seed=3)
@@ -932,14 +927,13 @@ def test_search_on_card_matches_cpu(cuda, beam_step, bits):
     p = SearchParams(l_size=32, beam_width=4, k=10, rerank_batch=10,
                      r_max=12, universe=400, max_iters=64,
                      visited_hash_bits=bits, trace_fetches=True,
-                     trace_hints=True,
-                     kernels=KernelConfig(beam_step=beam_step))
+                     trace_hints=True)
     build.reset_launches()
     got = search(on_card, queries, p)
-    fused = beam_step != "off"
     assert build.LAUNCHES["ef_decode"] > 0 and build.LAUNCHES["rerank_l2"] > 0
-    assert (build.LAUNCHES["beam_step"] > 0) == fused
-    assert build.LAUNCHES["pq_adc_batched"] > (0 if fused else 1)
+    assert build.LAUNCHES["beam_step"] > 0
+    # the entry's score only: the hop is beam_step
+    assert build.LAUNCHES["pq_adc_batched"] == 1
     # trace buffers keep the round's bookkeeping plain
     assert build.LAUNCHES["round_expand"] == build.LAUNCHES[
         "round_settle"] == 0
@@ -951,8 +945,7 @@ def test_search_on_card_matches_cpu(cuda, beam_step, bits):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("beam_step", ["auto", "off"])
-def test_traversal_replays_a_captured_round_bit_for_bit(cuda, beam_step):
+def test_traversal_replays_a_captured_round_bit_for_bit(cuda):
     """With the hash visited set and no trace buffers, the rounds after
     the first replay a CUDA graph of one round, their bookkeeping the
     round_expand and round_settle kernels: every output equals the plain
@@ -964,10 +957,9 @@ def test_traversal_replays_a_captured_round_bit_for_bit(cuda, beam_step):
                                       seed=3, device="cpu")
     on_card = DeviceIndex(*(None if t is None else t.to(cuda)
                             for t in on_cpu))
-    p = beam.check_kernels(SearchParams(
-        l_size=32, beam_width=4, k=10, rerank_batch=10, r_max=12,
-        universe=400, max_iters=64, visited_hash_bits=10,
-        kernels=KernelConfig(beam_step=beam_step)))
+    p = SearchParams(l_size=32, beam_width=4, k=10, rerank_batch=10,
+                     r_max=12, universe=400, max_iters=64,
+                     visited_hash_bits=10)
     q = torch.from_numpy(make_queries("prop-like", 9, 16))
     luts = build_lut_torch(q, on_cpu.pq_centroids)
     plain = beam.traverse(on_cpu, luts, p)

@@ -18,7 +18,9 @@ import torch
 
 from repro.core.graph.pq import encode_pq, train_pq
 from repro.core.graph.vamana import build_vamana
+from repro.core.index import build_device_index as jbuild
 from repro.core.index import recall_at_k
+from repro.core.search import beam as jbeam
 from repro.core.search import engine as jengine
 from repro.core.storage.colocated import ColocatedStore as JColocated
 from repro.core.storage.index_store import CompressedIndexStore as JIndex
@@ -28,8 +30,11 @@ from repro.core.storage.vector_store import DecoupledVectorStore as JVS
 from repro.core.storage.vector_store import StoreConfig as JConfig
 from repro.data.synthetic import ground_truth, make_queries, make_vector_dataset
 from repro.kernels.dispatch import KernelConfig as JKernelConfig
+from repro.serve import ann as jann
 
 from repro_torch.core.graph.pq import PQCodebook
+from repro_torch.core.index import device_index_from_numpy
+from repro_torch.core.search import beam as tbeam
 from repro_torch.core.search import engine
 from repro_torch.core.storage import layout
 from repro_torch.core.storage.colocated import ColocatedStore
@@ -37,7 +42,9 @@ from repro_torch.core.storage.index_store import (CompressedIndexStore,
                                                   RawIndexStore)
 from repro_torch.core.storage.vector_store import (DecoupledVectorStore,
                                                    StoreConfig)
-from repro_torch.kernels.dispatch import KernelConfig
+from repro_torch.serve import ann
+
+from torch_parity import assert_same_report
 
 # 128-dim float32 records (512 B, ~8 a block), as tests/test_engine.py
 # chooses, so per-vector I/O is meaningful: at 32 dims every vector read of
@@ -179,33 +186,75 @@ def test_decoupled_modeled_latency_ordering_matches_reference(world):
 
 
 def test_cost_table_has_only_the_port_backends():
-    """No TPU row and no fused-beam discount; ``cuda`` prices as ``ref``
-    (the reference's ``ref`` row) until the card's numbers replace it."""
-    assert set(engine.KERNEL_COST_US) == {"ref", "cuda"}
-    assert engine.KERNEL_COST_US["cuda"] == engine.KERNEL_COST_US["ref"] \
-        == jengine.KERNEL_COST_US["ref"]
-    assert not hasattr(engine, "FUSED_BEAM_DISCOUNT")
-    for name in ("pallas", "auto-tuned", "pallas-interpret", "auto"):
-        with pytest.raises(ValueError, match="unknown kernel backend"):
-            engine.compute_costs(name)
+    """One cost row, the reference's ``ref`` row: no per-backend table, no
+    TPU row, no fused-beam discount and no backend argument anywhere."""
+    ref = jengine.KERNEL_COST_US["ref"]
+    assert (engine.T_PQ, engine.T_EX, engine.T_DEC) == \
+        (ref["pq"], ref["ex"], ref["dec"])
+    for gone in ("KERNEL_COST_US", "FUSED_BEAM_DISCOUNT", "compute_costs",
+                 "op_backend", "beam_compute_costs"):
+        assert not hasattr(engine, gone), gone
+    assert "kernel_backend" not in {
+        f.name for f in dataclasses.fields(engine.EngineConfig)}
     assert (engine.T_PQ, engine.T_EX, engine.T_DEC, engine.T_IO) == \
         (jengine.T_PQ, jengine.T_EX, jengine.T_DEC, jengine.T_IO)
 
 
-@pytest.mark.parametrize("device,backend", [("cpu", "ref"),
-                                            ("cuda", "cuda")])
-def test_pricing_backend_follows_the_device(device, backend):
-    """The serving tier prices at the backend an ``auto`` request resolves
-    to on the index's device; the reference's CPU resolution is ``ref``."""
-    k = KernelConfig()
-    assert engine.op_backend(k, "pq_adc", device) == backend
-    assert engine.beam_compute_costs(k, device) == \
-        jengine.beam_compute_costs(JKernelConfig().resolve("cpu"))
+def _searcher_prices():
+    """The serving tier's pricing: the port's BatchedSearcher and the
+    reference's, its kernels all ``ref``, on one small index, their
+    reports of one batch equal -> (the port's decode costs, the
+    reference's costs)."""
+    vecs = make_vector_dataset("prop-like", n=200, dim=16,
+                               seed=0).astype(np.float32)
+    jindex, _, _ = jbuild(vecs, r=8, l_build=16, pq_m=4, seed=0)
+    tindex = device_index_from_numpy(
+        {k: np.asarray(v) for k, v in jindex._asdict().items()}, "cpu")
+    kw = dict(l_size=16, beam_width=4, k=5, rerank_batch=5, r_max=8,
+              universe=200, max_iters=32)
+    js = jann.BatchedSearcher(
+        jindex, jbeam.SearchParams(**kw, kernels=JKernelConfig(
+            *["ref"] * 5)), jann.ServeConfig(buckets=(4,)))
+    ts = ann.BatchedSearcher(tindex, tbeam.SearchParams(**kw),
+                             ann.ServeConfig(buckets=(4,)), device="cpu")
+    queries = make_queries("prop-like", 4, 16).astype(np.float32)
+    want, got = js.search(queries)[2], ts.search(queries)[2]
+    assert got.modeled_latency_us > 0
+    assert_same_report(want, got)
+    return ((ts._t_dec_ix, ts._t_dec_vec),
+            (js._t_pq, js._t_ex, js._t_dec_ix, js._t_dec_vec))
 
 
-@pytest.mark.parametrize("backend", ["ref", "cuda"])
-def test_manifest_vs_kernel_backend_dec_precedence_matches_reference(
-        backend):
+@pytest.mark.parametrize("site", ["searcher", "cpu_us", "merge"])
+def test_every_pricing_site_prices_at_the_reference_ref_row(site):
+    """The serving tier, the host engines' compute price and the merge's
+    each price at the reference's ``ref`` constants, on the CPU and the
+    card alike."""
+    ref = jengine.KERNEL_COST_US["ref"]
+    if site == "searcher":
+        port_dec, ref_costs = _searcher_prices()
+        assert ref_costs == (ref["pq"], ref["ex"], ref["dec"], ref["dec"])
+        assert port_dec == (ref["dec"], ref["dec"])
+    elif site == "cpu_us":
+        kw = dict(pq_ops=37, exact_ops=11, decompressions=9, graph_decs=5,
+                  vector_decs=4)
+        want = 37 * ref["pq"] + 11 * ref["ex"] + 9 * ref["dec"]
+        assert engine._cpu_us(engine.QueryStats(**kw)) == want
+        assert engine._cpu_us(engine.QueryStats(**kw),
+                              engine.EngineConfig()) == want
+        assert jengine._cpu_us(jengine.QueryStats(**kw),
+                               jengine.EngineConfig(
+                                   kernel_backend="ref")) == want
+    else:
+        for blocks, lists in ((7, 90), (0, 3), (12, 0)):
+            assert engine.merge_cost_us(blocks, lists) == \
+                jengine.merge_cost_us(blocks, lists, "ref") == \
+                blocks * jengine.T_IO_WRITE + lists * ref["dec"]
+
+
+def test_manifest_vs_kernel_backend_dec_precedence_matches_reference():
+    """The manifest picks each tier's codec cost; with no backend scaling
+    left, every codec prices at the reference's ``ref`` rate."""
     def plans(mod, adj, vec):
         comps = {}
         for comp, codec in (("adjacency", adj), ("vector_chunks", vec)):
@@ -218,15 +267,14 @@ def test_manifest_vs_kernel_backend_dec_precedence_matches_reference(
     for adj, vec in (("delta_varint", "ans_id"), (None, None),
                      ("raw", "huffman"), ("elias_fano", None)):
         want = jengine.manifest_dec_costs(plans(jlayout, adj, vec), "ref")
-        got = engine.manifest_dec_costs(plans(layout, adj, vec), backend)
+        got = engine.manifest_dec_costs(plans(layout, adj, vec))
         assert got == want
-    assert engine.manifest_dec_costs(None, backend) == \
+    assert engine.manifest_dec_costs(None) == \
         jengine.manifest_dec_costs(None, "ref")
     for codec in engine.CODEC_DEC_US:
-        assert engine.t_dec_for(codec, backend) == \
-            jengine.t_dec_for(codec, "ref")
+        assert engine.t_dec_for(codec) == jengine.t_dec_for(codec, "ref")
     with pytest.raises(ValueError, match="unknown codec"):
-        engine.t_dec_for("lz4", backend)
+        engine.t_dec_for("lz4")
 
 
 def test_merge_topk_ties_and_prices_match_reference():
@@ -252,8 +300,7 @@ def test_merge_topk_ties_and_prices_match_reference():
         engine.shard_merge_cost_us(4, 4, "tree")
     for b in (0, 1, 5):
         assert engine.rerank_tail_us(b) == jengine.rerank_tail_us(b)
-    assert engine.merge_cost_us(7, 90, "cuda") == \
-        jengine.merge_cost_us(7, 90, "ref")
+    assert engine.merge_cost_us(7, 90) == jengine.merge_cost_us(7, 90, "ref")
     sm, jsm = engine.ServiceModel(150.0, 80.0), jengine.ServiceModel(150.0,
                                                                      80.0)
     for n in (0, 1, 9):

@@ -18,7 +18,6 @@ from repro.core.codec import xor_delta as jxd
 
 from repro_torch.core.codec import huffman
 from repro_torch.kernels import dispatch
-from repro_torch.kernels.dispatch import KernelConfig
 from repro_torch.kernels.huffman_decode import huffman_decode as hd
 
 from test_torch_cuda import HUFFMAN_CASES, huffman_case
@@ -109,14 +108,15 @@ def test_decoder_words_equal_the_canonical_lut(case):
 
 
 def test_huffman_decode_routes_by_the_byteplane_field():
-    """The op has no field of its own: ``byteplane`` routes it, the backend
-    follows the tensors, and the CUDA wrapper refuses CPU tensors."""
+    """No field routes the op (the ``byteplane`` field is gone with every
+    per-op request): the tensors' device does. CPU tensors take the plain
+    version, a request is no argument, and the CUDA wrapper refuses CPU
+    tensors."""
     payload, starts, table, bases, base_of, want = huffman_case("skewed", 16)
     args = (T(payload), T(starts), 16, table, T(bases), T(base_of))
-    np.testing.assert_array_equal(
-        dispatch.huffman_decode(*args, KernelConfig(byteplane="auto"))
-        .numpy(), want)
-    with pytest.raises(ValueError, match="beam_step"):
-        dispatch.huffman_decode(*args, KernelConfig(byteplane="off"))
+    np.testing.assert_array_equal(dispatch.huffman_decode(*args).numpy(),
+                                  want)
+    with pytest.raises(TypeError):
+        dispatch.huffman_decode(*args, None)
     with pytest.raises(ValueError, match="CUDA"):
         hd.huffman_decode_cuda(*args)

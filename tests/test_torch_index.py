@@ -25,8 +25,6 @@ from repro_torch.core.graph import pq, vamana
 from repro_torch.core.distributed import sharded_index
 from repro_torch.core.search import beam
 from repro_torch.core.update import consistency, fresh
-from repro_torch.kernels import autotune
-from repro_torch.kernels.dispatch import KernelConfig
 from repro_torch.serve import admission, ann
 from repro_torch.data import synthetic
 from repro_torch.configs import get_config, reduce_config
@@ -284,9 +282,6 @@ def test_entry_points_default_to_the_card(world):
             pq.PQCodebook(arrays["pq_centroids"], 32),
             fresh.UpdateConfig(r=24)),
         lambda: sharded_index.make_mesh(8),
-        lambda: autotune.AutotuneCache.load(),
-        lambda: beam.resolve_kernels(p._replace(
-            kernels=KernelConfig(beam_step="auto-tuned"))),
         lambda: admission.calibrate_service_model(
             ann.BatchedSearcher(on_cpu, p), queries[:2]),
         lambda: lm.init(0),

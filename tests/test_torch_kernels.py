@@ -32,7 +32,7 @@ from repro_torch.kernels.beam_step.beam_step import (beam_step_cuda,
                                                      beam_step_ref)
 from repro_torch.kernels.byteplane.byteplane import (byteplane_decode_cuda,
                                                      byteplane_decode_ref)
-from repro_torch.kernels.dispatch import KernelConfig, get_impl
+from repro_torch.kernels.dispatch import get_impl
 from repro_torch.kernels.ef_decode.ef_decode import (ef_decode_cuda,
                                                      ef_decode_ref)
 from repro_torch.kernels.pq_adc.pq_adc import (pq_adc_batched_cuda,
@@ -46,7 +46,7 @@ from repro_torch.kernels.rerank_l2.rerank_l2 import (rerank_l2_cuda,
 from test_torch_cuda import (ADC_ID_CASES, BEAM_CASES, BYTEPLANE_SHAPES,
                              RERANK_ID_CASES, adc_case, adc_ids_case,
                              assert_bits_equal, beam_case, byteplane_case,
-                             ef_ids, ef_slots, rerank_ids_case,
+                             ef_ids, ef_slots, huffman_case, rerank_ids_case,
                              single_adc_case)
 
 JREF = JKernelConfig("ref", "ref", "ref", "ref", "ref")
@@ -236,9 +236,8 @@ def test_beam_step_matches_reference(case):
 @pytest.mark.parametrize("m", [8, 384])
 def test_beam_step_matches_unfused_composition(m):
     """The fused op == pq_adc_batched + mask + concat + stable top-L, the
-    composition the hot path runs under beam_step='off', at the small
-    world's M and at a wide code's (M = 384, a LUT in 12 slices on the
-    card)."""
+    reference's unfused hop, at the small world's M and at a wide code's
+    (M = 384, a LUT in 12 slices on the card)."""
     pq_codes, luts, cand_ids, cand_d, new_ids = map(T, beam_case(
         5, 33, 20, m, seed=23))
     codes = pq_codes[new_ids.clamp(0, len(pq_codes) - 1)]
@@ -386,33 +385,87 @@ def test_pq_encode_wrapper_takes_any_dsub(d, m, k, ok):
 
 
 # ---------------------------------------------------------- dispatch layer
+def _op_args(op):
+    """Small CPU inputs of each registered op."""
+    from repro_torch.core.codec import elias_fano as ef
+    if op == "pq_adc":
+        return tuple(map(T, single_adc_case(40, 8, seed=1)))
+    if op == "pq_adc_batched":
+        return tuple(map(T, adc_ids_case(3, 20, 8, seed=2)))
+    if op == "ef_decode":
+        slots, _ = ef_slots(24, 1200, seed=3)
+        return T(slots.view(np.int32)), 24, 1200, T(ef_ids(len(slots)))
+    if op == "ef_record_decode":
+        nbrs = T(np.sort(np.random.default_rng(4).integers(0, 5000, (6, 9)),
+                         axis=1))
+        payload, offsets = ef.encode_records_torch(
+            *ef.sort_lists_torch(nbrs), 5000)
+        return (payload, offsets[:-1].contiguous(),
+                (offsets[1:] - offsets[:-1]).to(torch.int32),
+                torch.tensor([5, 0, 2, 9, -1]))
+    if op == "rerank_l2":
+        return tuple(map(T, rerank_ids_case(3, 10, 32, seed=5)))
+    if op == "byteplane":
+        return tuple(map(T, byteplane_case(7, 16, seed=6)))
+    if op == "huffman_decode":
+        payload, starts, table, bases, base_of, _ = huffman_case("skewed", 16)
+        return T(payload), T(starts), 16, table, T(bases), T(base_of)
+    if op == "beam_step":
+        return tuple(map(T, beam_case(3, 20, 16, 8, seed=7)))
+    if op == "pq_encode":
+        rng = np.random.default_rng(8)
+        return (T(rng.normal(size=(11, 32)).astype(np.float32)),
+                T(rng.normal(size=(8, 16, 4)).astype(np.float32)))
+    raise KeyError(op)
+
+
+PUBLIC_OP = {"byteplane": "byteplane_decode"}
+
+
+@pytest.mark.parametrize("op", sorted({op for op, _ in dispatch._registry()}))
+def test_every_op_follows_the_tensors_device(op):
+    """The public op on CPU tensors is its plain version, bit for bit; on a
+    device without a backend (meta) it raises. No other argument picks an
+    implementation."""
+    args = _op_args(op)
+    public = getattr(dispatch, PUBLIC_OP.get(op, op))
+    got, want = public(*args), get_impl(op, "ref")(*args)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert_bits_equal(a, b)
+    meta = tuple(a.to("meta") if isinstance(a, torch.Tensor) else a
+                 for a in args)
+    with pytest.raises(ValueError, match="no kernel backend"):
+        public(*meta)
+
+
 def test_backend_follows_the_tensors_device():
-    cfg = KernelConfig()
-    assert dispatch.resolve_backend("auto", torch.device("cpu")) == "ref"
-    assert dispatch.resolve_backend("auto", torch.device("cuda")) == "cuda"
-    assert dispatch.resolve_backend("off", torch.device("cuda"),
-                                    "beam_step") == "off"
+    assert dispatch.resolve_backend(torch.device("cpu")) == "ref"
+    assert dispatch.resolve_backend(torch.device("cuda")) == "cuda"
     codes, luts = adc_case(2, 5, 8, seed=0)
-    assert_bits_equal(dispatch.pq_adc_batched(T(codes), T(luts), cfg),
+    assert_bits_equal(dispatch.pq_adc_batched(T(codes), T(luts)),
                       pq_adc_batched_ref(T(codes), T(luts)))
     with pytest.raises(ValueError, match="no kernel backend"):
-        dispatch.resolve_backend("auto", torch.device("meta"))
+        dispatch.resolve_backend(torch.device("meta"))
 
 
 def test_dispatch_refuses_unknown_and_unresolved_backends():
-    with pytest.raises(ValueError, match="unknown kernel backend"):
-        KernelConfig(pq_adc="pallas").check()
-    with pytest.raises(ValueError, match="unknown kernel backend"):
-        KernelConfig(rerank_l2="ref").check()
-    with pytest.raises(ValueError, match="beam_step"):
-        KernelConfig(pq_adc="off").check()
-    assert KernelConfig(beam_step="off").check().beam_step == "off"
-    with pytest.raises(RuntimeError, match="unresolved"):
-        get_impl("pq_adc_batched", "auto")
-    with pytest.raises(RuntimeError, match="branch"):
-        get_impl("beam_step", "off")
+    """The registry has the two backends of the device rule and nothing a
+    request could name: no per-op request, no ``auto`` or ``off``."""
+    assert {b for _, b in dispatch._registry()} == set(dispatch.BACKENDS) \
+        == {"ref", "cuda"}
+    assert not [n for n in vars(dispatch) if n.endswith("Config")
+                or n in ("REQUESTED", "default_config")]
+    for backend in ("auto", "off", "auto-tuned", "pallas"):
+        with pytest.raises(KeyError):
+            get_impl("pq_adc_batched", backend)
     with pytest.raises(KeyError):
         get_impl("no_such_op", "cuda")
+    codes, luts = adc_case(2, 5, 8, seed=0)
+    with pytest.raises(TypeError):
+        dispatch.pq_adc_batched(T(codes), T(luts), None, None)
 
 
 def test_kernel_build_needs_nvcc(tmp_path, monkeypatch):

@@ -15,6 +15,8 @@ reference, and the two reference faults the port does not carry over.
   (``models/api.py``): both pinned on the reference, and the port's
   decode held to a prefill (or ``decode_train``) over S + 1 tokens.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import jax
@@ -22,6 +24,7 @@ import jax.numpy as jnp
 import torch
 
 from repro.configs import ARCHS, get_config, reduce_config
+from repro.core.search.engine import EngineConfig as JEngineConfig
 from repro.core.search.engine import search_decoupled
 from repro.core.storage.index_store import CompressedIndexStore as JIS
 from repro.core.storage.vector_store import DecoupledVectorStore as JVS
@@ -304,8 +307,11 @@ def test_rag_rows_wider_than_a_block():
                          cache_bytes=1 << 16)
     queries = make_token_batch(jm.cfg.vocab, 3, 8, seed=11)
     t_ids, t_stats = t_rag.retrieve(queries)
+    # the reference's config with the port's values (the reference's has
+    # a kernel_backend field too, which the port does not)
+    jcfg = JEngineConfig(**dataclasses.asdict(t_rag.cfg))
     want = [search_decoupled(jis, _RefSplitRows(jvs, 4, 2048), t_rag.codes,
-                             t_rag.cb, row, t_rag.cfg)
+                             t_rag.cb, row, jcfg)
             for row in embed_tokens(tp, queries)]
     np.testing.assert_array_equal(t_ids, np.stack([i[:2] for i, _ in want]))
     for key in ("graph_ios", "vector_ios", "cache_hits"):

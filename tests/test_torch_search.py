@@ -26,13 +26,11 @@ from repro.kernels.dispatch import KernelConfig as JKernelConfig
 from repro_torch import tracing
 from repro_torch.core.index import device_index_from_numpy, recall_at_k
 from repro_torch.core.search import beam
-from repro_torch.core.search.beam import (SearchParams, check_kernels,
-                                          search, search_candidates,
-                                          search_one)
+from repro_torch.core.search.beam import (SearchParams, search,
+                                          search_candidates, search_one)
 from repro_torch.core.graph.pq import build_lut_torch
 from repro_torch.kernels import build
 from repro_torch.kernels.beam_step.beam_step import beam_step_ref
-from repro_torch.kernels.dispatch import KernelConfig
 from repro_torch.kernels.ef_decode.ef_decode import ef_decode_ref
 from repro_torch.kernels.pq_adc.pq_adc import pq_adc_batched_ref
 from repro_torch.kernels.search_round import search_round as sr
@@ -69,9 +67,8 @@ def jax_runs(world):
     return run
 
 
-def _port(beam_step, **kw):
-    return SearchParams(**{**BASE, **kw},
-                        kernels=KernelConfig(beam_step=beam_step))
+def _port(**kw):
+    return SearchParams(**{**BASE, **kw})
 
 
 def assert_same_search(got, want):
@@ -85,15 +82,15 @@ def assert_same_search(got, want):
 
 
 @pytest.mark.parametrize("bits", [0, 10], ids=["dense", "hashed"])
-@pytest.mark.parametrize("beam_step", ["auto", "off"],
-                         ids=["fused", "unfused"])
+@pytest.mark.parametrize("max_iters", [128, 5])
 @pytest.mark.parametrize("nq", [1, 7, 32])
-def test_search_matches_reference(world, jax_runs, nq, beam_step, bits):
+def test_search_matches_reference(world, jax_runs, nq, max_iters, bits):
+    """The port's one path (the fused hop) against the reference's unfused
+    hop, run to its end and frozen at an iteration cap."""
     _, index, _, queries, _ = world
-    got = search(index, queries[:nq], _port(beam_step,
-                                            visited_hash_bits=bits),
-                 device="cpu")
-    assert_same_search(got, jax_runs(nq, visited_hash_bits=bits))
+    kw = dict(visited_hash_bits=bits, max_iters=max_iters)
+    got = search(index, queries[:nq], _port(**kw), device="cpu")
+    assert_same_search(got, jax_runs(nq, **kw))
 
 
 @pytest.fixture(scope="module", params=["sift-like", "prop-like"])
@@ -116,20 +113,17 @@ def world128(request):
 
 
 @pytest.mark.parametrize("bits", [0, 10], ids=["dense", "hashed"])
-@pytest.mark.parametrize("beam_step", ["auto", "off"],
-                         ids=["fused", "unfused"])
+@pytest.mark.parametrize("max_iters", [128, 5])
 @pytest.mark.parametrize("nq", [7, 32])
-def test_search_matches_reference_d128(world128, nq, beam_step, bits):
+def test_search_matches_reference_d128(world128, nq, max_iters, bits):
     ref_idx, ports, queries, runs = world128
-    if (nq, bits) not in runs:
-        p = ref_beam.SearchParams(**{**BASE, "visited_hash_bits": bits},
-                                  kernels=JREF)
-        runs[nq, bits] = ref_beam.search(ref_idx, queries[:nq], p)
+    kw = dict(visited_hash_bits=bits, max_iters=max_iters)
+    if (nq, bits, max_iters) not in runs:
+        p = ref_beam.SearchParams(**{**BASE, **kw}, kernels=JREF)
+        runs[nq, bits, max_iters] = ref_beam.search(ref_idx, queries[:nq], p)
     for index in ports.values():
-        got = search(index, queries[:nq], _port(beam_step,
-                                                visited_hash_bits=bits),
-                     device="cpu")
-        assert_same_search(got, runs[nq, bits])
+        got = search(index, queries[:nq], _port(**kw), device="cpu")
+        assert_same_search(got, runs[nq, bits, max_iters])
 
 
 def test_raw_adjacency_and_tombstones_match_reference(world):
@@ -143,7 +137,7 @@ def test_raw_adjacency_and_tombstones_match_reference(world):
     for kw in (dict(use_ef=False), dict(filter_tombstones=True)):
         p = ref_beam.SearchParams(**{**BASE, **kw}, kernels=JREF)
         want = ref_beam.search(ref_live, queries[:7], p)
-        assert_same_search(search(index, queries[:7], _port("auto", **kw),
+        assert_same_search(search(index, queries[:7], _port(**kw),
                                   device="cpu"), want)
 
 
@@ -160,10 +154,11 @@ def test_luts_are_identical(world):
         jnp.asarray(queries), ref_idx.pq_centroids)), rtol=1e-6)
 
 
-@pytest.mark.parametrize("beam_step", ["auto", "off"])
-def test_golden_recall(world, beam_step):
+def test_golden_recall(world):
+    """The golden is the dense visited set's: on this world the 2^10-slot
+    hash set evicts, re-visits and stops at recall@10 0.865625."""
     _, index, _, queries, gt = world
-    ids, _, _ = search(index, queries, _port(beam_step), device="cpu")
+    ids, _, _ = search(index, queries, _port(), device="cpu")
     rec = recall_at_k(ids, gt, 10)
     assert rec >= GOLDEN_RECALL_AT_10, f"recall@10 = {rec}"
 
@@ -171,7 +166,7 @@ def test_golden_recall(world, beam_step):
 def test_batch_invisibility(world):
     """A row of a batched search equals the nq=1 run of that query."""
     _, index, _, queries, _ = world
-    p = _port("auto", visited_hash_bits=10)
+    p = _port(visited_hash_bits=10)
     ids, dists, stats = search(index, queries, p, device="cpu")
     for qi in [0, 13, 31]:
         i1, d1, s1 = search_one(index, queries[qi], p, device="cpu")
@@ -187,7 +182,7 @@ def test_search_candidates_matches_reference(world):
     p_ref = ref_beam.SearchParams(**BASE, kernels=JREF)
     want_ids, want_d = ref_beam.search_candidates(ref_idx, queries[:7],
                                                   p_ref)
-    got_ids, got_d = search_candidates(index, queries[:7], _port("auto"),
+    got_ids, got_d = search_candidates(index, queries[:7], _port(),
                                        device="cpu")
     np.testing.assert_array_equal(got_ids.numpy(), np.asarray(want_ids))
     np.testing.assert_allclose(got_d.numpy(), np.asarray(want_d), rtol=1e-6)
@@ -196,7 +191,7 @@ def test_search_candidates_matches_reference(world):
 def test_search_refuses_an_index_on_another_device(world):
     _, index, _, queries, _ = world
     with pytest.raises(ValueError, match="index lives on"):
-        search(index, queries[:2], _port("auto"), device="meta")
+        search(index, queries[:2], _port(), device="meta")
 
 
 def _plain_traverse(index, luts, p):
@@ -258,7 +253,7 @@ def test_plain_round_matches_the_reference_traversal(world, nq, bits):
     ref_idx, index, _, queries, _ = world
     kw = dict(visited_hash_bits=bits, trace_fetches=False,
               trace_hints=False)
-    p = check_kernels(_port("auto", **kw))
+    p = _port(**kw)
     luts = build_lut_torch(torch.from_numpy(queries[:nq]),
                            index.pq_centroids)
     got = _plain_traverse(index, luts, p)
@@ -289,10 +284,9 @@ def test_the_fused_round_is_chosen_from_what_traverse_observes(
     _, index, _, queries, _ = world
     n = index.pq_codes.shape[0]
     luts = build_lut_torch(torch.from_numpy(queries[:2]), index.pq_centroids)
-    serve = check_kernels(SearchParams(l_size=200, beam_width=4, k=10,
-                                       rerank_batch=10, r_max=128,
-                                       universe=31_250_000,
-                                       visited_hash_bits=15))
+    serve = SearchParams(l_size=200, beam_width=4, k=10, rerank_batch=10,
+                         r_max=128, universe=31_250_000,
+                         visited_hash_bits=15)
     asked, says = [], {"fits": 1}
 
     def library(name, entry, *args):
@@ -334,7 +328,7 @@ def test_round_span_says_which_round_ran(world):
     _, index, _, queries, _ = world
     build.reset_launches()
     for bits in (0, 10):
-        p = _port("auto", visited_hash_bits=bits, trace_fetches=False,
+        p = _port(visited_hash_bits=bits, trace_fetches=False,
                   trace_hints=False)
         with profile(activities=[ProfilerActivity.CPU],
                      record_shapes=True) as prof:

@@ -26,6 +26,7 @@ from repro_torch.core.distributed.sharded_index import (
     sharded_index_from_numpy)
 from repro_torch.core.index import device_index_from_numpy
 from repro_torch.core.search import beam as tbeam
+from repro_torch.core.search import engine
 from repro_torch.core.search.beam import search, search_vmapped
 from repro_torch.core.storage import layout
 from repro_torch.core.update.consistency import ShardedSnapshotHandle
@@ -192,7 +193,7 @@ def test_manifest_pricing_matches_reference(small_world):
                              ann.ServeConfig(buckets=(8,),
                                              manifest=man(layout)),
                              device="cpu")
-    assert (ts._t_pq, ts._t_ex, ts._t_dec_ix, ts._t_dec_vec) == \
+    assert (engine.T_PQ, engine.T_EX, ts._t_dec_ix, ts._t_dec_vec) == \
         (js._t_pq, js._t_ex, js._t_dec_ix, js._t_dec_vec)
     assert_same_report(js.search(queries[:8])[2], ts.search(queries[:8])[2])
 

@@ -27,7 +27,6 @@ from repro_torch.core.storage.vector_store import (DecoupledVectorStore,
                                                    StoreConfig)
 from repro_torch.core.update.fresh import (StreamingIndex, UpdateConfig,
                                            snapshot_search)
-from repro_torch.kernels.dispatch import KernelConfig
 
 from torch_parity import (assert_same_index_state, assert_same_merge,
                           assert_same_results, streaming_pair)
@@ -253,10 +252,11 @@ def test_live_recall_matches_python_path_golden():
     assert float(np.mean(recalls)) >= 1.0
 
 
-@pytest.mark.parametrize("beam_step", ["auto", "off"])
-def test_live_snapshot_fused_and_unfused_match_reference(beam_step):
-    """A live snapshot with a tombstone and a memtable row in play: the
-    fused and the unfused hop give the reference's ids."""
+@pytest.mark.parametrize("bits", [0, 10], ids=["dense", "hashed"])
+def test_live_snapshot_visited_sets_match_reference(bits):
+    """A live snapshot with a tombstone and a memtable row in play: with
+    the dense and the hashed visited set the port's fused hop gives the
+    reference's ids (the reference runs its unfused hop)."""
     vecs = make_vector_dataset("prop-like", n=200, dim=16,
                                seed=9).astype(np.float32)
     ref, port = streaming_pair(vecs)
@@ -265,14 +265,12 @@ def test_live_snapshot_fused_and_unfused_match_reference(beam_step):
     queries = np.stack([vecs[50], vecs[42], vecs[7] + 0.002])
     universe = port.handle.current().index_store.universe
     kw = dict(l_size=32, k=5, r_max=16, universe=universe,
-              benefit_threshold=0.0, filter_tombstones=True)
+              benefit_threshold=0.0, filter_tombstones=True,
+              visited_hash_bits=bits)
     want = jsnapshot_search(ref.handle.current(), queries,
                             JSearchParams(**kw))
     got = snapshot_search(port.handle.current(), queries,
-                          SearchParams(**kw,
-                                       kernels=KernelConfig(
-                                           beam_step=beam_step)),
-                          device="cpu")
+                          SearchParams(**kw), device="cpu")
     assert_same_results(want, got, rtol=1e-5)
     assert 42 not in set(got[0].reshape(-1).tolist())
     assert 240 in set(got[0][0].tolist())
