@@ -37,7 +37,10 @@ Phases (any fault exits non-zero; there is no CPU fallback):
    the traversal round's two kernels (round_expand, round_settle) on the
    shard's EF slots at its search's round 1 and round 9 (nq 1,024, L 200,
    W 4, R 128, hash bits 15; the plain rounds drive the state there),
-   every state tensor they update compared on copies.
+   every state tensor they update compared on copies; and the whole
+   re-rank (rerank_loop) against its plain loop, whose distances are
+   plain torch, on the shard's rows with candidate lists in a noisy order
+   of their exact distance.
    Every comparison is bit-exact.
 3. small world — the test suite's world (n=1200, dim=32, r=24, pq_m=8,
    32 queries) built by the port, searched on the card and on the CPU
@@ -51,9 +54,9 @@ Phases (any fault exits non-zero; there is no CPU fallback):
    by the ef_decode kernel and compared with the source graph; 1,024
    queries are searched twice under the production SearchParams; the
    distances equal a recompute. Launch counts are read around each
-   search. A profile of the search fails the run if a torch row gather
-   still reads the shard's PQ codes or vectors (every kernel reads its
-   rows by id).
+   search (the re-rank is one rerank_loop launch and no rerank_l2). A
+   profile of the search fails the run if a torch row gather still reads
+   the shard's PQ codes or vectors (every kernel reads its rows by id).
 4c. serve — the serving tier (serve/ann.py) on the resident shard:
    BatchedSearcher with buckets (8, 32, 1024), fetch traces replayed
    through an LRU of 0.1% of n x dim bytes, serving the 1,024 queries, the
@@ -126,7 +129,9 @@ Phases (any fault exits non-zero; there is no CPU fallback):
    call a round on from the last), the plain version's and a library
    call's where one computes the same function, the bound, the ADC's and
    the re-rank's old compositions (torch gather + the kernel without ids)
-   on the same id sets, beam_step's time by survivors, the
+   on the same id sets, beam_step's time by survivors, rerank_loop at
+   the three serve cells' row shapes (uint8 D 128, float32 D 96 and 768;
+   1,024 queries, L 200) against the host loop it replaced (~5 s), the
    load's old composition (decode_at_torch + one byteplane launch per
    chunk) on the segment huffman_decode is timed on, the single-LUT
    kernel on all-equal codes of the shard's scan (its LUT reads
@@ -235,6 +240,8 @@ REPLACES = {
     # step) before its hop, and after it; the port's _round ran the same
     "round_expand": "src/repro/core/search/beam.py:232",
     "round_settle": "src/repro/core/search/beam.py:310",
+    # no kernel: the reference's re-rank while_loop around its rerank_l2
+    "rerank_loop": "src/repro/core/search/beam.py:382",
 }
 #: The arguments the round kernels update in place (``kernels/search_round``):
 #: round_expand's expanded, visited, fetched, pq_ct, flag and new_ids;
@@ -434,6 +441,7 @@ class Parity:
         from repro_torch.kernels.pq_adc import pq_adc as pa
         from repro_torch.kernels.pq_encode import pq_encode as pe
         from repro_torch.kernels.rerank_l2 import rerank_l2 as rr
+        from repro_torch.kernels.rerank_loop import rerank_loop as rl
         from repro_torch.kernels.search_round import search_round as sr
         self.torch, self.seed = torch, seed
         self.dev = torch.device("cuda")
@@ -444,6 +452,7 @@ class Parity:
             "pq_adc_batched": (pa.pq_adc_batched_cuda,
                                pa.pq_adc_batched_ref),
             "rerank_l2": (rr.rerank_l2_cuda, rr.rerank_l2_ref),
+            "rerank_loop": (rl.rerank_loop_cuda, rl.rerank_loop_ref),
             "pq_encode": (pe.pq_encode_cuda, pe.pq_encode_ref),
             "byteplane": (bp.byteplane_decode_cuda,
                           bp.byteplane_decode_ref),
@@ -461,6 +470,13 @@ class Parity:
                                           sr.round_settle_ref)}
         for op, fns in self.in_place.items():
             self.ops[op] = tuple(in_place(f, ROUND_OUT[op]) for f in fns)
+        # what a kernel's time is set beside where that is not its plain
+        # version: the re-rank loop as the search ran it before the
+        # rerank_loop kernel (a rerank_l2 launch and a read a batch); its
+        # plain version's distances are plain torch, so the comparison
+        # holds the kernel against no code it shares
+        self.yardsticks = {"rerank_loop": lambda *a: rl.rerank_loop_ref(
+            *a, l2=rr.rerank_l2_cuda)}
         self.records_s = 0.0     # seconds of ef_record_decode's own cases
         self.err = dict.fromkeys(self.ops, 0.0)
         self.cases = dict.fromkeys(self.ops, 0)
@@ -527,6 +543,28 @@ class Parity:
         keep = torch.rand(nq, e, generator=self.g, device=self.dev) < mask_p
         new_ids = torch.where(keep, rows, -1).to(torch.int32)
         return table, luts, cand_ids, cand_d.contiguous(), new_ids
+
+    def rerank_lists(self, queries, table, l_size, noise=0.3):
+        """[nq, L] int32 candidate lists as a traversal leaves them: random
+        rows in a noisy order of their exact distance (the PQ order is
+        one), so later re-rank batches still move the heap."""
+        torch = self.torch
+        nq = queries.shape[0]
+        ids = self.randint(table.shape[0], nq, l_size, dtype=torch.int32)
+        d = self.ops["rerank_l2"][0](queries, table, ids)
+        order = (d * (1 + noise * self.rand(nq, l_size))).argsort(
+            dim=1, stable=True)
+        return torch.gather(ids, 1, order).contiguous()
+
+    def rerank_loop_args(self, queries, table, p, sets):
+        """``sets`` argument tuples of the whole re-rank at ``p``'s K, B,
+        batch limit and threshold, each with fresh candidate lists."""
+        k, b = p.k, p.rerank_batch
+        most = min(p.max_rerank_batches, max(0, (p.l_size - k) // b))
+        return [(queries, table, self.rerank_lists(queries, table,
+                                                   p.l_size),
+                 k, b, most, p.benefit_threshold, None)
+                for _ in range(sets)]
 
     def table_ids(self, n, nq, e, kind="random"):
         """[nq, e] int32 row ids into n rows: "random" (30% masked with
@@ -1063,7 +1101,11 @@ class Parity:
             # one re-rank batch: k_re ids a query, every one kept
             "rerank_l2": [(shard.queries, shard.index.vectors,
                            self.table_ids(n, nq, k_re, "kept"))
-                          for _ in range(self.COLD_SETS)]}
+                          for _ in range(self.COLD_SETS)],
+            # the whole re-rank at the search's K, B and threshold
+            "rerank_loop": self.rerank_loop_args(
+                shard.queries, shard.index.vectors, shard.p,
+                self.COLD_SETS)}
         # the search's steady state: the candidate half holds the best L
         # of 4,096 rows a query, so few new ids beat its last entry
         deep = self.randint(n, nq, 4096, dtype=torch.int32)
@@ -1084,6 +1126,7 @@ class Parity:
             "beam_step": self.cold["beam_step"][0],
             "ef_decode": self.cold["ef_decode"][0],
             "rerank_l2": self.cold["rerank_l2"][0],
+            "rerank_loop": self.cold["rerank_loop"][0],
             "pq_encode": (shard.index.vectors[:1 << 18].clone(),
                           shard.index.pq_centroids),
             # one query's exhaustive ADC over every code of the shard
@@ -1418,9 +1461,11 @@ class Shard:
                      / exact64.clamp_min(1)).max())
         check(rel < 1e-6, f"distances vs float64 recompute: rel {rel}")
         self.result = (ids, dists)
-        for name in ("beam_step", "pq_adc_batched", "rerank_l2"):
+        for name in ("beam_step", "pq_adc_batched", "rerank_loop"):
             check(launches[name] > 0, f"{name} never launched on the main "
                   f"path")
+        check(launches["rerank_loop"] == 1 and launches["rerank_l2"] == 0,
+              "the search's re-rank is not one rerank_loop launch")
         check(lists_decoded(launches) > 0,
               "no EF list decoded on the main path")
         it = st.iters.float()
@@ -1436,7 +1481,7 @@ class Shard:
         log(f"launches: {launches}")
         self.profile(walls[0])
         return {name: launches[name] for name in
-                ("beam_step", "ef_decode", "pq_adc_batched", "rerank_l2",
+                ("beam_step", "ef_decode", "pq_adc_batched", "rerank_loop",
                  "round_expand", "round_settle")}
 
     def profile(self, wall: float):
@@ -1628,7 +1673,7 @@ class Storage:
             f"== phase 4 (ids, dists); beam search recall@{shard.p.k} against"
             f" an exhaustive PQ scan + exact re-rank of its 100 best "
             f"(8 queries) {recall:.4f}; launches {launches}")
-        for name in ("beam_step", "pq_adc_batched", "rerank_l2", "pq_adc"):
+        for name in ("beam_step", "pq_adc_batched", "rerank_loop", "pq_adc"):
             check(launches[name] > 0, f"{name} never launched on the "
                   f"storage path")
         check(lists_decoded(launches) > 0,
@@ -1876,7 +1921,7 @@ class Serve:
             parts.append(f"failed {failed}: fan-out "
                          f"{got[2].fanout_frac:.3f}, {report_line(got[2])}")
         launched = dict(build.LAUNCHES)
-        for name in ("beam_step", "pq_adc_batched", "rerank_l2"):
+        for name in ("beam_step", "pq_adc_batched", "rerank_loop"):
             check(launched[name] > 0, f"sharded serve launched no {name}")
         check(lists_decoded(launched) > 0, "sharded serve decoded no list")
         log(f"serve (sharded): small world n=1200 in 4 range shards of "
@@ -1997,7 +2042,7 @@ class MeshSearch:
         wall_local = sync_time(torch, t0)
         per_shard = dict(build.LAUNCHES)
         check(all(per_shard[x] >= S for x in
-                  ("beam_step", "pq_adc_batched", "rerank_l2"))
+                  ("beam_step", "pq_adc_batched", "rerank_loop"))
               and lists_decoded(per_shard) >= S,
               f"the {S} shard searches launched {per_shard}")
         cand_i = gids.permute(1, 0, 2).reshape(len(q), -1).cpu().numpy()
@@ -2563,8 +2608,8 @@ class Live:
             f"out-neighbours); served ids == idx.search_batch's; no deleted "
             f"id surfaced in any serve")
         self.log_sizing(t_merge)
-        for name in ("beam_step", "pq_adc_batched", "rerank_l2",
-                     "huffman_decode"):
+        for name in ("beam_step", "pq_adc_batched", "rerank_loop",
+                     "rerank_l2", "huffman_decode"):
             check(total[name] > 0, f"{name} never launched on the live path")
         check(lists_decoded(total) > 0, "no EF list decoded on the live path")
         self.idx = None
@@ -2880,7 +2925,7 @@ class LMServe:
         gen, st = rag.answer(queries, max_new=16)
         t_ans = sync_time(torch, t0)
         launches = dict(build.LAUNCHES)
-        for op in ("beam_step", "pq_adc_batched", "rerank_l2"):
+        for op in ("beam_step", "pq_adc_batched", "rerank_loop"):
             check(launches.get(op, 0) > 0,
                   f"{op} never launched by RAG retrieval ({launches})")
         check(lists_decoded(launches) > 0,
@@ -3742,6 +3787,15 @@ def bounds(torch, op, args):
                    else (x.shape[0] * x.shape[1], x.shape[2]))
         return (q.numel() * 4 + rows * d * x.element_size()
                 + rows * (8 if ids else 4)), 3 * rows * d
+    if op == "rerank_loop":    # each batch's ids and rows, read once
+        q, x, cand, k, b = args[:5]
+        from repro_torch.kernels.rerank_loop.rerank_loop import \
+            rerank_loop_ref
+        ran = rerank_loop_ref(*args)[2].long()
+        rows = int((k + b * ran).sum())
+        d = x.shape[1]
+        return (q.numel() * 4 + rows * (4 + d * x.element_size())
+                + q.shape[0] * (k * 8 + 4)), 3 * rows * d
     if op == "pq_encode":
         x, cents = args
         m, k, dsub = cents.shape
@@ -3925,6 +3979,46 @@ def wide_pq_timings(torch, parity) -> None:
         f"{Parity.COLD_SETS} id sets): " + "; ".join(parts))
 
 
+def rerank_loop_timings(torch, parity) -> None:
+    """The whole re-rank at the three serve cells' row shapes (uint8 D 128
+    on the shard's own rows; float32 D 96 and D 768 on 2,000,000 drawn
+    rows), 1,024 queries, L 200, K = B = 10, up to 16 batches at the
+    default threshold: the one rerank_loop launch bit for bit against the
+    plain loop (plain torch distances), then its device time (cycling
+    fresh candidate lists, rows cold) beside the byte bound and the time
+    of the loop the search ran before (``parity.yardsticks``: a rerank_l2
+    launch and a read a batch, the host reads inside the events)."""
+    from repro_torch.core.search.beam import SearchParams
+    nq, n = 1024, 2_000_000
+    p = SearchParams(l_size=200, k=10, rerank_batch=10)
+    shard_rows = parity.shard_in["rerank_l2"][1]
+    tables = {
+        "u8 D=128": (shard_rows, parity.rand(nq, 128).abs_() * 64),
+        "f32 D=96": (parity.rand(n, 96), parity.rand(nq, 96)),
+        "f32 D=768": (parity.rand(n, 768), parity.rand(nq, 768))}
+    kern, host_loop = (parity.ops["rerank_loop"][0],
+                       parity.yardsticks["rerank_loop"])
+    parts = []
+    for name, (table, q) in tables.items():
+        sets = parity.rerank_loop_args(q, table, p, Parity.COLD_SETS)
+        ran = parity.compare("rerank_loop", f"{name} serve shape",
+                             *sets[0])[2].float()
+        ms = cuda_ms(torch, [lambda a=a: kern(*a) for a in sets])
+        host_ms = cuda_ms(torch, [lambda a=a: host_loop(*a) for a in sets],
+                          reps=5)
+        nbytes = bounds(torch, "rerank_loop", sets[0])[0]
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        parts.append(f"{name} {ms:.4f} ms (host loop with rerank_l2 "
+                     f"launches {host_ms:.4f} ms), "
+                     f"bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB, "
+                     f"{100 * bound / ms:.1f}%), batches mean "
+                     f"{float(ran.mean()):.2f} max {int(ran.max())}")
+        del sets, table, q
+    log(f"rerank_loop at the serve shapes ({nq} queries, L {p.l_size}, K "
+        f"{p.k}, B {p.rerank_batch}, rows cold, cycling "
+        f"{Parity.COLD_SETS} candidate sets): " + "; ".join(parts))
+
+
 def load_yardstick(torch, parity) -> None:
     """The load's old composition on each full segment of phase 2:
     ``decode_at_torch`` then one byteplane launch per chunk with a base,
@@ -4040,17 +4134,20 @@ def record_yardstick(torch, parity) -> None:
 
 def time_kernels(torch, parity) -> dict:
     """Per-kernel device times on the shard's inputs, taken before the
-    storage phase; then the parity inputs, which hold the shard's tables,
-    are let go."""
+    storage phase, each beside its plain version's (or its
+    ``parity.yardsticks`` entry's); then the parity inputs, which hold the
+    shard's tables, are let go."""
     old_compositions(torch, parity)
     beam_step_regimes(torch, parity)
     wide_pq_timings(torch, parity)
+    rerank_loop_timings(torch, parity)
     load_yardstick(torch, parity)
     pq_adc_yardsticks(torch, parity)
     record_yardstick(torch, parity)
     times = {}
     for op, args in parity.shard_in.items():
         kern, plain = parity.ops[op]
+        plain = parity.yardsticks.get(op, plain)
         sets = parity.cold.get(op, [args])
         k_sets = p_sets = sets
         if op in parity.in_place:

@@ -12,13 +12,13 @@ batch-first over queries — the PyTorch port of ``repro.core.search.beam``.
 
 The whole query batch advances through one loop; a finished row is frozen
 by masking its updates, so each row's trajectory equals its solo (nq=1)
-run. The reference's two ``lax.while_loop``s are host loops here that stop
-when no row is active (one device-to-host read of that flag per
-iteration). A round's bookkeeping around the hop is
-``kernels/search_round``'s: on the card two kernel launches
-(``round_expand``, ``round_settle``) where the visited set is the hash
-table over EF slots, else its plain PyTorch version. On the card the
-traversal's rounds after the first replay a CUDA graph of one round
+run. The reference's traversal ``lax.while_loop`` is a host loop here that
+stops when no row is active (one device-to-host read of that flag per
+round); its re-rank loop is the ``rerank_loop`` op (below). A round's
+bookkeeping around the hop is ``kernels/search_round``'s: on the card two
+kernel launches (``round_expand``, ``round_settle``) where the visited set
+is the hash table over EF slots, else its plain PyTorch version. On the
+card the traversal's rounds after the first replay a CUDA graph of one round
 (``_capture``), so a round costs the host one launch, not three kernel
 launches or ~50 op dispatches; ``kernels.build.LAUNCHES`` counts a
 captured kernel once. Every top-k is a stable ascending sort
@@ -28,9 +28,11 @@ Scatters the reference writes with ``mode="drop"`` to index ``n`` / ``H``
 write into one padding column here, which no read looks at.
 
 The compute ops — batched PQ ADC, EF slot decode, the fused hop and the
-exact re-rank — go through ``kernels.dispatch``: a CUDA kernel on a CUDA
-index, the plain PyTorch version on a CPU index. Each takes the shard's
-table and the ids of the rows it reads, so no row gather precedes it.
+re-rank's whole loop — go through ``kernels.dispatch``: a CUDA kernel on a
+CUDA index, the plain PyTorch version on a CPU index. Each takes the
+shard's table and the ids of the rows it reads, so no row gather precedes
+it. On the card the re-rank is one ``rerank_loop`` launch that reads
+nothing back; on the CPU its plain loop reads a flag a batch.
 """
 from __future__ import annotations
 
@@ -40,7 +42,7 @@ import torch
 
 from ... import tracing
 from ...kernels import dispatch
-from ...kernels.beam_step.beam_step import lut_slices, stable_smallest
+from ...kernels.beam_step.beam_step import lut_slices
 from ...kernels.dispatch import resolve_device
 from ...kernels.search_round import search_round
 from ..graph.pq import build_lut_torch
@@ -106,13 +108,6 @@ def _gather_neighbors(index: DeviceIndex, sel_ids: torch.Tensor,
     nbrs = index.neighbors[sel_ids.clamp(0, n - 1)]
     return torch.where((sel_ids >= 0)[..., None], nbrs,
                        -1).reshape(sel_ids.shape[0], -1)
-
-
-def _any(flag: torch.Tensor) -> bool:
-    """Whether any entry of ``flag`` is set, read back to the host: the
-    loops' one blocking read a round."""
-    with tracing.span("search.sync"):
-        return bool(flag.any() if flag.dim() else flag)
 
 
 def _graphable(luts: torch.Tensor, p: SearchParams) -> bool:
@@ -272,21 +267,21 @@ def traverse(index: DeviceIndex, luts: torch.Tensor, p: SearchParams):
                 p.max_iters)
 
     step = _fused_round if fused else _plain_round
-    go = _any(active)
+    go = tracing.any_set("search.sync", active)
     if go and _graphable(luts, p):
         # the first round runs as it is written, the rest replay its
         # capture: one graph launch and one flag read a round
         step()
-        go = _any(flag)
+        go = tracing.any_set("search.sync", flag)
         if go:
             replay = _capture(step, dev)
             while go:
                 with tracing.span("search.round", {"fused": int(fused)}):
                     replay()
-                go = _any(flag)
+                go = tracing.any_set("search.sync", flag)
     while go:
         step()
-        go = _any(flag)
+        go = tracing.any_set("search.sync", flag)
 
     return cand_ids, cand_d, (iters, fetched, pf_iter, pq_ct + 1, trace,
                               hints)
@@ -297,53 +292,23 @@ def rerank(index: DeviceIndex, queries: torch.Tensor, cand_ids: torch.Tensor,
     """Batched phase-2 adaptive re-ranking (§3.4) ->
     (ids [nq, K], dists [nq, K], (batches [nq], exact_ct [nq])).
 
-    All rows consume candidate batch b in lockstep; a row whose benefit
-    ratio fired (plus the one-batch lookahead) drops out by masking, so its
-    executed-batch count matches a solo run exactly.
+    Batch 0 (the prefetched top-K) and then batches of B candidates until
+    a row's benefit ratio fires (plus the one-batch lookahead): the
+    ``rerank_loop`` op, so each row's executed-batch count matches a solo
+    run. On the card that is one kernel launch in which every row runs its
+    own loop; on the CPU the plain loop, all rows in lockstep.
     """
-    n, K, B = index.vectors.shape[0], p.k, p.rerank_batch
-    nq = queries.shape[0]
-    dev = queries.device
+    K, B = p.k, p.rerank_batch
     if p.filter_tombstones and index.tombstone is None:
         raise ValueError(
             "SearchParams.filter_tombstones=True requires an index with a "
             "tombstone mask (DeviceIndex.tombstone)")
     # Candidates beyond L don't exist; bound the batch loop statically.
     max_batches = min(p.max_rerank_batches, max(0, (p.l_size - K) // B))
-
-    def exact(ids):
-        safe = ids.clamp(0, n - 1)
-        d = dispatch.rerank_l2(queries, index.vectors, ids=safe)
-        if p.filter_tombstones:
-            d = torch.where(index.tombstone[safe], torch.inf, d)
-        return torch.where(ids >= 0, d, torch.inf)
-
-    # Batch 0: the prefetched top-K (always re-ranked).
-    heap_ids = cand_ids[:, :K]
-    heap_d = exact(heap_ids)
-    go = torch.ones((nq,), dtype=torch.bool, device=dev)
-    pending_stop = torch.zeros((nq,), dtype=torch.bool, device=dev)
-    batches = torch.zeros((nq,), dtype=torch.int32, device=dev)
-    b = 0
-    while b < max_batches and _any(go):
-        ids = cand_ids[:, K + b * B:K + (b + 1) * B]
-        d = torch.where(go[:, None], exact(ids), torch.inf)
-        m_ids = torch.cat([heap_ids, ids], 1)
-        new_d, top_i = stable_smallest(torch.cat([heap_d, d], 1), K)
-        new_ids = torch.gather(m_ids, 1, top_i)
-        displaced = (top_i >= K).sum(1).to(torch.float32)
-        below = displaced / B < p.benefit_threshold
-        heap_ids = torch.where(go[:, None], new_ids, heap_ids)
-        heap_d = torch.where(go[:, None], new_d, heap_d)
-        batches = batches + go.to(torch.int32)
-        # one-batch lookahead (§3.4): the next batch is already in flight
-        # when the benefit test fires, so termination lags one batch.
-        go_next = go & (~pending_stop | ~below)
-        pending_stop = torch.where(go, below, pending_stop)
-        go = go_next
-        b += 1
-    dists, order = torch.sort(heap_d, dim=1, stable=True)
-    ids = torch.gather(heap_ids, 1, order)
+    ids, dists, batches = dispatch.rerank_loop(
+        queries, index.vectors, cand_ids, K, B, max_batches,
+        p.benefit_threshold,
+        index.tombstone if p.filter_tombstones else None)
     if p.filter_tombstones:
         # A tombstoned (masked-to-inf) id must never surface: -1 = no result.
         ids = torch.where(torch.isfinite(dists), ids, -1)
@@ -370,7 +335,9 @@ def search_batched(index: DeviceIndex, queries, p: SearchParams,
         with tracing.span("search.traverse"):
             cand_ids, cand_d, (iters, fetched, pf_iter, pq_ct, trace,
                                hints) = traverse(index, luts, p)
-        with tracing.span("search.rerank"):
+        # dispatch picks the re-rank's kernel by the table's device
+        with tracing.span("search.rerank",
+                          {"fused": int(index.vectors.is_cuda)}):
             ids, dists, (batches, exact_ct) = rerank(
                 index, queries.to(torch.float32), cand_ids, p)
     stats = SearchStats(iters, fetched, pf_iter, batches, exact_ct,

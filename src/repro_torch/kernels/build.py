@@ -30,7 +30,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("pq_adc_batched", "ef_decode", "beam_step", "rerank_l2",
            "pq_encode", "byteplane", "pq_adc", "huffman_decode",
-           "ef_record_decode", "round_expand", "round_settle")
+           "ef_record_decode", "round_expand", "round_settle",
+           "rerank_loop")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

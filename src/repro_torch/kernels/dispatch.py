@@ -55,6 +55,7 @@ def _registry() -> dict[tuple[str, str], Callable]:
                                 pq_adc_cuda, pq_adc_ref)
     from .pq_encode.pq_encode import pq_encode_cuda, pq_encode_ref
     from .rerank_l2.rerank_l2 import rerank_l2_cuda, rerank_l2_ref
+    from .rerank_loop.rerank_loop import rerank_loop_cuda, rerank_loop_ref
 
     table: dict[tuple[str, str], Callable] = {}
     for op, ref, kern in (
@@ -64,6 +65,7 @@ def _registry() -> dict[tuple[str, str], Callable]:
             ("ef_record_decode", ef_record_decode_ref,
              ef_record_decode_cuda),
             ("rerank_l2", rerank_l2_ref, rerank_l2_cuda),
+            ("rerank_loop", rerank_loop_ref, rerank_loop_cuda),
             ("beam_step", beam_step_ref, beam_step_cuda),
             ("byteplane", byteplane_decode_ref, byteplane_decode_cuda),
             ("huffman_decode", huffman_decode_ref, huffman_decode_cuda),
@@ -120,6 +122,17 @@ def rerank_l2(queries, cands, ids=None):
     (clipped to [0, N - 1], nothing masked) -> squared L2 [Q, C]; without
     ids, [Q, C, D] candidates."""
     return _impl("rerank_l2", cands)(queries, cands, ids)
+
+
+def rerank_loop(queries, vectors, cand_ids, k: int, b: int,
+                max_batches: int, threshold: float, tombstone=None):
+    """The phase-2 re-rank's benefit-ratio loop over the [N, D] table for
+    [Q, D] float32 queries and their [Q, L] int32 candidates (batch 0 the
+    first ``k``, then up to ``max_batches`` batches of ``b``; ids < 0 and
+    ``tombstone``d ids read +inf) -> (ids [Q, min(k, L)], dists, batches
+    [Q] int32), the heap in ascending stable order."""
+    return _impl("rerank_loop", vectors)(queries, vectors, cand_ids, k, b,
+                                         max_batches, threshold, tombstone)
 
 
 def byteplane_decode(packed, base):

@@ -5,7 +5,8 @@ while ``torch.profiler`` records: a host range (a ``cpu_op`` row of the
 trace) on the same clock as the CUDA activity the profiler traces, so a
 gap between kernels can be read against the program code the host was
 running at the time. Without a profiler a span is one flag check and a
-shared no-op context.
+shared no-op context. ``any_set(name, flag)`` is the one blocking read of
+a flag, under a ``<layer>.sync`` span ``name``.
 
 The range is ``torch._C._profiler._RecordFunctionFast``, not
 ``record_function``: the profiler mirrors a ``record_function`` range onto
@@ -42,3 +43,11 @@ def span(name: str, args: dict | None = None):
     if args is None:
         return _RecordFunctionFast(PREFIX + name)
     return _RecordFunctionFast(PREFIX + name, (), args)
+
+
+def any_set(name: str, flag) -> bool:
+    """Whether any entry of the tensor ``flag`` is set, read back to the
+    host under the sync span ``name`` (a ``<layer>.sync``); a 0-d flag is
+    read as it is, with no reduction launched."""
+    with span(name):
+        return bool(flag.any() if flag.dim() else flag)

@@ -43,6 +43,8 @@ from repro_torch.kernels.pq_encode.pq_encode import (pq_encode_cuda,
                                                      pq_encode_ref)
 from repro_torch.kernels.rerank_l2.rerank_l2 import (rerank_l2_cuda,
                                                      rerank_l2_ref)
+from repro_torch.kernels.rerank_loop.rerank_loop import (rerank_loop_cuda,
+                                                         rerank_loop_ref)
 
 
 def adc_case(nq, n, m, seed, equal_codes=False):
@@ -285,6 +287,48 @@ RERANK_ID_CASES = {
     "repeated-ids": dict(q=4, c=20, d=16, seed=9, ids="repeated"),
     "empty": dict(q=3, c=0, d=32, seed=10),
 }
+
+
+def rerank_loop_case(nq, d, l_size, seed, dtype=np.uint8):
+    """(queries [nq, D] f32, table [n, D] of ``dtype``, cand_ids [nq, L]
+    int32, tombstone [n] bool): candidate lists as a traversal leaves them,
+    each row's ids in a noisy order of their exact distance (so later
+    batches still move the heap), with ties (the table's second half
+    repeats its first, and rows list some ids twice), a tail of -1 on a
+    third of the rows, a -1 inside one row and an id past the table's end
+    (it clips); a fifth of the rows tombstoned."""
+    rng = np.random.default_rng(seed)
+    half = max(32, 2 * l_size)
+    n = 2 * half
+    base = (rng.integers(0, 256, (half, d)) if dtype == np.uint8
+            else rng.normal(size=(half, d)))
+    table = np.concatenate([base, base]).astype(dtype)
+    queries = (rng.uniform(0, 255, (nq, d)) if dtype == np.uint8
+               else rng.normal(size=(nq, d))).astype(np.float32)
+    cand = np.empty((nq, l_size), np.int64)
+    for i in range(nq):
+        ids = rng.choice(n, l_size, replace=False)
+        twice = rng.choice(l_size, l_size // 8, replace=False)
+        ids[twice] = ids[rng.choice(l_size, len(twice))]
+        exact = ((table[ids].astype(np.float64) - queries[i]) ** 2).sum(1)
+        cand[i] = ids[np.argsort(exact * (1 + 0.3 * rng.normal(
+            size=l_size)), kind="stable")]
+        if i % 3 == 1:
+            cand[i, rng.integers(0, l_size):] = -1
+    cand[0, l_size // 2] = -1
+    cand[-1, 1] = n + 5
+    return queries, table, cand.astype(np.int32), rng.random(n) < 0.2
+
+
+#: The re-rank's rows: the three serve cells' dtypes and widths.
+RERANK_LOOP_ROWS = {"u8-d128": (np.uint8, 128), "f32-d96": (np.float32, 96),
+                    "f32-d768": (np.float32, 768)}
+#: Benefit thresholds: 0.1 and the float32 just above it (at B = 10 one
+#: displaced entry reads exactly 0.1f, below only the second), the
+#: default, half, every batch below, none below.
+RERANK_LOOP_THRESHOLDS = (
+    0.1, float(np.nextafter(np.float32(0.1), np.float32(1))), 0.01, 0.5,
+    1.0, 0.0)
 
 
 def ef_ids(n_slots):
@@ -749,6 +793,104 @@ def test_rerank_l2_kernel_by_id(cuda, case, dtype):
     assert_bits_equal(got, rerank_l2_cuda(qt, rows))
 
 
+def _rerank_index(vectors, tombstone):
+    """A DeviceIndex holding only what the re-rank reads."""
+    return DeviceIndex(None, None, None, None, None, vectors, None,
+                       tombstone)
+
+
+def _rerank_both(cuda, case, p, max_batches):
+    """The re-rank of ``case`` on the card and on the CPU, through
+    ``beam.rerank`` (p's tombstone filter) and through the op itself
+    (``max_batches`` as given), held bit for bit -> the CPU's batches."""
+    from repro_torch.core.search import beam
+    cpu = [torch.from_numpy(x) for x in case]
+    card = [x.to(cuda) for x in cpu]
+    got = beam.rerank(_rerank_index(card[1], card[3]), card[0], card[2], p)
+    want = beam.rerank(_rerank_index(cpu[1], cpu[3]), cpu[0], cpu[2], p)
+    for a, b in zip(got[:2] + got[2], want[:2] + want[2]):
+        assert_bits_equal(a, b)
+    tomb = (lambda t: t[3] if p.filter_tombstones else None)
+    args = (p.k, p.rerank_batch, max_batches, p.benefit_threshold)
+    got = rerank_loop_cuda(*card[:3], *args, tomb(card))
+    want = rerank_loop_ref(*cpu[:3], *args, tomb(cpu))
+    for a, b in zip(got, want):
+        assert_bits_equal(a, b)
+    return want[2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_batches", [0, 1, 16])
+@pytest.mark.parametrize("k,b", [(10, 10), (24, 16)])
+@pytest.mark.parametrize("rows", sorted(RERANK_LOOP_ROWS))
+def test_rerank_loop_matches_the_plain_loop(cuda, rows, k, b, max_batches):
+    """The one-launch re-rank == the plain loop on CPU copies, bit for
+    bit: ids, distances, batches run and exact distance counts, at each
+    benefit threshold, tombstones filtered and not; K + B = 40 also cuts
+    its last batch at L (the op alone: the search never does)."""
+    dtype, d = RERANK_LOOP_ROWS[rows]
+    l_size = k + 16 * b - (3 if k + b > 32 else 0)
+    case = rerank_loop_case(37, d, l_size, seed=d + k, dtype=dtype)
+    ran = set()
+    for thr in RERANK_LOOP_THRESHOLDS:
+        for filt in (False, True):
+            p = SearchParams(l_size=l_size, k=k, rerank_batch=b,
+                             max_rerank_batches=max_batches,
+                             benefit_threshold=thr, filter_tombstones=filt)
+            ran |= set(_rerank_both(cuda, case, p, max_batches).tolist())
+    assert ran == {max_batches} if max_batches < 2 else len(ran) > 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", sorted(RERANK_LOOP_ROWS))
+def test_rerank_loop_kernel_at_the_serve_shapes(cuda, rows):
+    """1,024 queries, L = 200, K = B = 10, up to 16 batches at the default
+    threshold, on an unaligned table too: card == CPU bit for bit."""
+    dtype, d = RERANK_LOOP_ROWS[rows]
+    case = rerank_loop_case(1024, d, 200, seed=d, dtype=dtype)
+    p = SearchParams(l_size=200, k=10, rerank_batch=10)
+    assert len(set(_rerank_both(cuda, case, p, 16).tolist())) > 1
+    q, table, cand, _ = _on(cuda, *case)
+    shifted = _unaligned(table, 1 if dtype == np.uint8 else 3)
+    for a, b in zip(rerank_loop_cuda(q, shifted, cand, 10, 10, 16, 0.01),
+                    rerank_loop_cuda(q, table, cand, 10, 10, 16, 0.01)):
+        assert_bits_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_search_reranks_in_one_launch_without_a_read_back(cuda):
+    """One search_batched on the card: one rerank_loop launch, no
+    rerank_l2 launch, no search.sync inside search.rerank (whose span says
+    fused 1), and the same answers as the CPU's plain loop."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import tracing
+    vecs = make_vector_dataset("prop-like", 400, 16, seed=3)
+    on_cpu, _, _ = build_device_index(vecs, r=12, l_build=24, pq_m=4,
+                                      seed=3, device="cpu")
+    on_card = DeviceIndex(*(None if t is None else t.to(cuda)
+                            for t in on_cpu))
+    queries = make_queries("prop-like", 37, 16)
+    p = SearchParams(l_size=32, beam_width=4, k=10, rerank_batch=10,
+                     r_max=12, universe=400, max_iters=64,
+                     visited_hash_bits=10)
+    search(on_card, queries, p)   # built and captured before the count
+    build.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU],
+                 record_shapes=True) as prof:
+        got = search(on_card, queries, p)
+    assert build.LAUNCHES["rerank_loop"] == 1
+    assert build.LAUNCHES["rerank_l2"] == 0
+    spans = [(ev.name[len(tracing.PREFIX):], ev.time_range, ev.kwinputs)
+             for ev in prof.events() if ev.name.startswith(tracing.PREFIX)]
+    (rr, args), = [(t, a) for name, t, a in spans if name == "search.rerank"]
+    assert args == {"fused": 1}
+    assert not [t for name, t, _ in spans if name == "search.sync"
+                and rr.start <= t.start and t.end <= rr.end]
+    want = search(on_cpu, queries, p, device="cpu")
+    for a, b in zip(got[:2] + tuple(got[2]), want[:2] + tuple(want[2])):
+        assert_bits_equal(a, b)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shift", [1, 2, 4, 8])
 def test_rerank_l2_kernel_unaligned(cuda, shift):
@@ -930,8 +1072,10 @@ def test_search_on_card_matches_cpu(cuda, bits):
                      trace_hints=True)
     build.reset_launches()
     got = search(on_card, queries, p)
-    assert build.LAUNCHES["ef_decode"] > 0 and build.LAUNCHES["rerank_l2"] > 0
-    assert build.LAUNCHES["beam_step"] > 0
+    assert build.LAUNCHES["ef_decode"] > 0 and build.LAUNCHES["beam_step"] > 0
+    # the re-rank is one launch of its whole loop
+    assert build.LAUNCHES["rerank_loop"] == 1
+    assert build.LAUNCHES["rerank_l2"] == 0
     # the entry's score only: the hop is beam_step
     assert build.LAUNCHES["pq_adc_batched"] == 1
     # trace buffers keep the round's bookkeeping plain
@@ -1056,7 +1200,7 @@ def test_serving_on_card_matches_cpu(cuda):
         q = np.concatenate([q, np.repeat(q[-1:], bucket - count, 0)])
         search(on_card, q, card.p)
     assert served == build.LAUNCHES
-    assert served["beam_step"] > 0 and served["rerank_l2"] > 0
+    assert served["beam_step"] > 0 and served["rerank_loop"] > 0
 
 
 @pytest.mark.cuda
@@ -1211,7 +1355,7 @@ def test_stacked_sharded_search_on_card_matches_cpu(cuda, merge):
         rows = {n: make_sharded_search(m, p, merge=merge, **kw)(
             place_on_mesh(on_cpu, m), queries) for n, m in meshes.items()}
         assert build.LAUNCHES["beam_step"] > 0
-        assert build.LAUNCHES["rerank_l2"] >= 8
+        assert build.LAUNCHES["rerank_loop"] >= 8
         assert torch.equal(rows["card"][0].cpu(), rows["cpu"][0])
         assert_bits_equal(rows["card"][1].cpu(), rows["cpu"][1])
 
@@ -1338,7 +1482,7 @@ def test_rag_on_card_matches_cpu(cuda):
     want_ids, want = on_cpu.retrieve(queries)
     np.testing.assert_array_equal(got_ids, want_ids)
     _same_report(got["report"], want["report"])
-    for op in ("beam_step", "ef_decode", "pq_adc_batched", "rerank_l2"):
+    for op in ("beam_step", "ef_decode", "pq_adc_batched", "rerank_loop"):
         assert launches.get(op, 0) > 0, (op, launches)
     gen, stats = on_card.answer(queries, max_new=4)
     np.testing.assert_array_equal(stats["retrieved"], want_ids)

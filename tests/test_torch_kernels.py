@@ -42,12 +42,13 @@ from repro_torch.kernels.pq_encode.pq_encode import (pq_encode_cuda,
                                                      pq_encode_ref)
 from repro_torch.kernels.rerank_l2.rerank_l2 import (rerank_l2_cuda,
                                                      rerank_l2_ref)
+from repro_torch.kernels.rerank_loop.rerank_loop import rerank_loop_cuda
 
 from test_torch_cuda import (ADC_ID_CASES, BEAM_CASES, BYTEPLANE_SHAPES,
                              RERANK_ID_CASES, adc_case, adc_ids_case,
                              assert_bits_equal, beam_case, byteplane_case,
                              ef_ids, ef_slots, huffman_case, rerank_ids_case,
-                             single_adc_case)
+                             rerank_loop_case, single_adc_case)
 
 JREF = JKernelConfig("ref", "ref", "ref", "ref", "ref")
 JPAL = JKernelConfig(*(["pallas-interpret"] * 5))
@@ -405,6 +406,9 @@ def _op_args(op):
                 torch.tensor([5, 0, 2, 9, -1]))
     if op == "rerank_l2":
         return tuple(map(T, rerank_ids_case(3, 10, 32, seed=5)))
+    if op == "rerank_loop":
+        q, table, cand, tomb = map(T, rerank_loop_case(5, 16, 40, seed=9))
+        return q, table, cand, 10, 10, 3, 0.1, tomb
     if op == "byteplane":
         return tuple(map(T, byteplane_case(7, 16, seed=6)))
     if op == "huffman_decode":
@@ -486,6 +490,30 @@ def test_kernel_build_needs_nvcc(tmp_path, monkeypatch):
         (tmp_path / "kernels").iterdir())
 
 
+def test_rerank_loop_wrapper_refuses_what_it_does_not_take():
+    """The one-launch re-rank takes int32 ids, uint8 or float32 rows,
+    float32 queries of the rows' width, an [N] bool mask and counts >= 0;
+    each refusal comes before any launch."""
+    q, table, cand, tomb = map(T, rerank_loop_case(3, 8, 30, seed=1))
+    args = (10, 10, 2, 0.1)
+    with pytest.raises(TypeError, match="int32 candidate ids"):
+        rerank_loop_cuda(q, table, cand.long(), *args)
+    with pytest.raises(TypeError, match="uint8 or float32 vectors"):
+        rerank_loop_cuda(q, table.double(), cand, *args)
+    with pytest.raises(ValueError, match="float32 queries"):
+        rerank_loop_cuda(q.double(), table, cand, *args)
+    with pytest.raises(ValueError, match="float32 queries"):
+        rerank_loop_cuda(q[:, :4], table, cand, *args)
+    with pytest.raises(ValueError, match="bool tombstone"):
+        rerank_loop_cuda(q, table, cand, *args, tomb[:-1])
+    with pytest.raises(ValueError, match="bool tombstone"):
+        rerank_loop_cuda(q, table, cand, *args, tomb.to(torch.uint8))
+    with pytest.raises(ValueError, match=">= 0"):
+        rerank_loop_cuda(q, table, cand, 10, 10, -1, 0.1)
+    with pytest.raises(ValueError, match="empty table"):
+        rerank_loop_cuda(q, table[:0], cand, *args)
+
+
 def test_cuda_wrappers_refuse_cpu_tensors():
     """On a CPU tensor a kernel wrapper raises; only dispatch picks the
     plain version, and only because the tensors are on the CPU."""
@@ -498,6 +526,10 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         rerank_l2_cuda(T(luts[:, 0]), T(luts))
     with pytest.raises(ValueError, match="CUDA"):
         rerank_l2_cuda(*map(T, rerank_ids_case(2, 5, 8, seed=0)))
+    q, table, cand, tomb = map(T, rerank_loop_case(2, 8, 30, seed=0))
+    for mask in (None, tomb):
+        with pytest.raises(ValueError, match="CUDA"):
+            rerank_loop_cuda(q, table, cand, 10, 10, 2, 0.1, mask)
     with pytest.raises(ValueError, match="CUDA"):
         pq_adc_cuda(T(codes[0]), T(luts[0]))
     packed, base = byteplane_case(4, 8, seed=0)

@@ -29,7 +29,7 @@ from repro_torch.core.search import beam
 from repro_torch.core.search.beam import (SearchParams, search,
                                           search_candidates, search_one)
 from repro_torch.core.graph.pq import build_lut_torch
-from repro_torch.kernels import build
+from repro_torch.kernels import build, dispatch
 from repro_torch.kernels.beam_step.beam_step import beam_step_ref
 from repro_torch.kernels.ef_decode.ef_decode import ef_decode_ref
 from repro_torch.kernels.pq_adc.pq_adc import pq_adc_batched_ref
@@ -139,6 +139,63 @@ def test_raw_adjacency_and_tombstones_match_reference(world):
         want = ref_beam.search(ref_live, queries[:7], p)
         assert_same_search(search(index, queries[:7], _port(**kw),
                                   device="cpu"), want)
+
+
+#: Re-rank settings around BASE: the default, thresholds at which every
+#: batch or none reads below (and 0.1, where at B = 10 one displaced entry
+#: is exactly the threshold), no batch, one batch, B = 4 with K = 12.
+RERANK_KW = {
+    "default": dict(),
+    "thr-0.1": dict(benefit_threshold=0.1),
+    "thr-1": dict(benefit_threshold=1.0),
+    "thr-0": dict(benefit_threshold=0.0),
+    "no-batch": dict(max_rerank_batches=0),
+    "one-batch": dict(max_rerank_batches=1, benefit_threshold=0.5),
+    "k12-b4": dict(k=12, rerank_batch=4, benefit_threshold=0.3),
+}
+
+
+def _rerank_against_reference(ref_idx, index, queries, kw):
+    """The op ``dispatch.rerank_loop`` on CPU tensors, on the candidates
+    the port's traversal leaves, against the reference's ``rerank`` of the
+    same candidates: ids, batches run and exact-distance counts equal,
+    distances to rtol 1e-6 (the module's rule)."""
+    p = _port(**kw)
+    cand_ids, _ = search_candidates(index, queries, p, device="cpu")
+    K, B = p.k, p.rerank_batch
+    max_batches = min(p.max_rerank_batches, max(0, (p.l_size - K) // B))
+    ids, dists, batches = dispatch.rerank_loop(
+        torch.from_numpy(queries).float(), index.vectors, cand_ids, K, B,
+        max_batches, p.benefit_threshold)
+    want = ref_beam.rerank(
+        ref_idx, jnp.asarray(queries, jnp.float32),
+        jnp.asarray(cand_ids.numpy()),
+        ref_beam.SearchParams(**{**BASE, **kw}, kernels=JREF))
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(want[0]))
+    np.testing.assert_allclose(dists.numpy(), np.asarray(want[1]),
+                               rtol=1e-6)
+    np.testing.assert_array_equal(batches.numpy(), np.asarray(want[2][0]))
+    np.testing.assert_array_equal(K + batches.numpy() * B,
+                                  np.asarray(want[2][1]))
+    return batches
+
+
+@pytest.mark.parametrize("kw", sorted(RERANK_KW))
+def test_rerank_loop_matches_the_reference_rerank(world, kw):
+    ref_idx, index, _, queries, _ = world
+    batches = _rerank_against_reference(ref_idx, index, queries[:32],
+                                        RERANK_KW[kw])
+    if kw == "no-batch":
+        assert not batches.any()
+
+
+@pytest.mark.parametrize("kw", ["default", "thr-0.1", "k12-b4"])
+def test_rerank_loop_matches_the_reference_rerank_d128(world128, kw):
+    """The same at d = 128, the port's rows float32 and (sift-like) the
+    shard's uint8."""
+    ref_idx, ports, queries, _ = world128
+    for index in ports.values():
+        _rerank_against_reference(ref_idx, index, queries, RERANK_KW[kw])
 
 
 def test_luts_are_identical(world):

@@ -113,6 +113,22 @@ def test_search_opens_a_round_span_a_round_and_a_sync_a_flag_read(world):
                for h in hops)
 
 
+def test_rerank_span_says_which_loop_ran(world):
+    """``search.rerank`` carries ``fused``: 0 on the CPU, where the plain
+    loop runs (its flag reads are the ``search.sync`` spans inside it) and
+    no ``rerank_loop`` kernel launches."""
+    from repro_torch.kernels import build
+    _, index, _, queries = world
+    build.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU],
+                 record_shapes=True) as prof:
+        search(index, torch.from_numpy(queries), P, "cpu")
+    got = [ev.kwinputs for ev in prof.events()
+           if ev.name == tracing.PREFIX + "search.rerank"]
+    assert got == [{"fused": 0}]
+    assert build.LAUNCHES["rerank_loop"] == build.LAUNCHES["rerank_l2"] == 0
+
+
 def test_hop_and_encode_spans_carry_their_shapes(world):
     """``search.hop`` records M, the LUT's bytes and the slices the fused
     hop stages it in; ``pq.encode`` the rows, M and dsub."""
